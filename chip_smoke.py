@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive voxtpu_torch's main path on one CUDA card and check it.
+"""Drive voxtpu_torch's paths on one CUDA card and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit (nvcc):
@@ -10,33 +10,54 @@ It fails (nonzero exit, no result lines) without a CUDA device or outside a
 checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. build of the four kernels from voxtpu_torch/csrc with nvcc, with the
+2. build of the six kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report;
-3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the slice (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels
-   recording: 35,689 frames of 2205 samples), in float64 and float32;
-4. the slice: `analyze` in float32 on the card, with every kernel's launch
-   count reset just before and read just after; all four must have run,
+3. kernels A-D (refine, burg, find_roots, formant_scan) against their plain
+   PyTorch versions on the card, at the shapes of the CLI path
+   (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels recording:
+   35,689 frames of 2205 samples), in float64 and float32;
+4. the CLI path: `analyze` in float32 on the card, with every kernel's
+   launch count reset just before and read just after; A-D must have run,
    outputs must be finite (hnr_db is -inf exactly where f0 == 0) and every
    frame's status 0;
 5. parity: float64 on the card through the kernels against the plain CPU
    path over the first 2 s, and float32 against float64 on the card over
    the whole signal within the fast-mode budgets, where a frame over a
    budget must be over it in the plain path too (see `check_budgets`);
-6. times: end to end, one run under torch.profiler (device busy time, idle
-   share, the activities with the most device time), and each kernel
-   against its plain version.
+6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024) with the
+   Viterbi path search, over the same 126 tiles (15,369 frames). The path
+   in float32 with all six launch counts above 0; all six kernels (A-D,
+   E ct_fused, F viterbi) against their plain versions at its shapes in
+   float64 and float32; float64 card-vs-CPU parity over the first 2 s;
+   float32 against float64 within the budgets by phase 5's rule, the plain
+   path over the whole signal built from one period of it
+   (`plain_periodic`); and `analyze_long` against `analyze` in float64;
+7. the corpus block: `analyze_batch_padded` over 16 recordings (8 tiles
+   each, random gain and trimmed tail), with D and F launched once for the
+   block, each row in float64 equal to `analyze` of its recording, and all
+   six kernels against their plain versions at the block's shapes (kernel
+   D with one recording's frame count as file_len);
+8. the flagship path: `analyze` at FLAGSHIP_44K (2048/512) with the
+   Viterbi path search over the 126 tiles, all six launch counts above 0,
+   healthy outputs, all six kernels against their plain versions at its
+   shapes, float64 card-vs-CPU parity over the first 2 s; then kernel E
+   against its plain version at every frame length its gate admits;
+9. times, float32: each path end to end, one run of the CLI and the bench
+   path under torch.profiler, and each kernel against its plain version,
+   with its bound and, for E, the cuFFT library time.
 
 Each phase prints the seconds it took.
 
 The line before the last is one JSON object with each kernel's launches,
-error and times; the last is the device line
+error, times and bound; the last is the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,18 +69,35 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "sample-two_vowels.wav"
 TILES = 126  # ~357 s of real speech
-EXPECTED_FRAMES = 35689
+EXPECTED_FRAMES = 35689  # CLI path, 2205/441
+BENCH_FRAMES = 15369  # bench path, 4096/1024
+CORPUS_FILES = 16  # `corpus --batch-files` default (voxtpu/cli.py:892)
+CORPUS_TILES = 8
 KNIFE = 1e-3  # |lag - round(lag)| under which the integer-snap branch decides Brent's path
 
 # Fast-mode budgets, float32 against float64 (tests/test_fast_mode.py:72-79).
 BUDGETS = {"f0": 0.7, "f0_strength": 1e-2, "formant_freqs": 2.5, "mfcc": 1e-4}
 
+# Kernel E in float32 against its plain version, per frame, relative to the
+# frame's largest value: each of the two transforms rounds to about
+# eps_f32 log2(nfft) = 1.6e-6 of the frame's scale at nfft = 8192, 1.7e-6 at
+# the gate's largest, 16384.
+CT_FUSED_F32_TOL = 4e-6
+
+# Peak rates of one H100 SXM at 700 W: HBM3 bytes/s, and float32 and float64
+# FLOP/s outside the tensor cores (NVIDIA's H100 data sheet).
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+F64_OPS_S = 34e12
+
 KERNELS = {
-    # name: (source, replaced TPU kernel)
-    "refine": ("voxtpu_torch/csrc/refine.cu", "voxtpu/ops/refine_pallas.py:286"),
-    "burg": ("voxtpu_torch/csrc/burg.cu", "voxtpu/ops/burg_pallas.py:80"),
-    "find_roots": ("voxtpu_torch/csrc/roots.cu", "voxtpu/ops/roots_pallas.py:208"),
-    "formant_scan": ("voxtpu_torch/csrc/formant_scan.cu", "voxtpu/ops/formant_scan_pallas.py:249"),
+    # name: (source, replaced TPU kernel, path whose shapes it is timed at)
+    "refine": ("voxtpu_torch/csrc/refine.cu", "voxtpu/ops/refine_pallas.py:286", "cli"),
+    "burg": ("voxtpu_torch/csrc/burg.cu", "voxtpu/ops/burg_pallas.py:80", "cli"),
+    "find_roots": ("voxtpu_torch/csrc/roots.cu", "voxtpu/ops/roots_pallas.py:208", "cli"),
+    "formant_scan": ("voxtpu_torch/csrc/formant_scan.cu", "voxtpu/ops/formant_scan_pallas.py:249", "cli"),
+    "ct_fused": ("voxtpu_torch/csrc/ct_fused.cu", "voxtpu/ops/ct_fused_pallas.py:187", "bench"),
+    "viterbi": ("voxtpu_torch/csrc/viterbi.cu", "voxtpu/ops/viterbi_pallas.py:175", "bench"),
 }
 
 
@@ -121,6 +159,21 @@ def sync_ms(fn, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, runs: int = 5) -> float:
+    """Mean device ms of `runs` warm calls between two CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def kernel_inputs(frames, cfg):
     """Each kernel's arguments at the slice's shapes, computed by the port's
     own stages from (F, n) raw frames."""
@@ -148,16 +201,18 @@ def kernel_inputs(frames, cfg):
     return {"refine": refine_args, "burg": burg_args, "find_roots": roots_args, "formant_scan": scan_args}, lc.valid
 
 
-def check_kernels(frames, cfg, checks: Checks) -> dict:
-    """Phase 3 for one dtype: every kernel against its plain version on the
-    same inputs. Returns {kernel: max_abs_err}."""
+def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None = None) -> dict:
+    """Kernels A-D against their plain versions on the same inputs, for one
+    dtype, at the shapes of (F, n) frames. file_len: the frames are
+    F / file_len recordings of file_len frames each, as the corpus block
+    hands them to kernel D. Returns {kernel: max_abs_err}."""
     import torch
 
     from voxtpu_torch.ops import burg, find_roots, formant_scan, refine
 
     dt = frames.dtype
     f64 = dt == torch.float64
-    tag = "f64" if f64 else "f32"
+    tag = f"{label}, {'f64' if f64 else 'f32'}"
     args, valid = kernel_inputs(frames, cfg)
     errs = {}
 
@@ -166,7 +221,7 @@ def check_kernels(frames, cfg, checks: Checks) -> dict:
     if f64:
         # tests/test_pallas.py:51-52: Brent's trajectory is chaotic in the
         # last ulp, so agreement is to Brent's tolerance.
-        e1 = checks.close("refine x [f64]", xk, xp, 1e-6, 1e-5, mask=valid)
+        e1 = checks.close(f"refine x [{tag}]", xk, xp, 1e-6, 1e-5, mask=valid)
     else:
         # The f32 fuzz test's bracket (tests/test_pallas.py:224-235): Brent
         # stops at tol_act ~ sqrt(eps_f32)|x|. Where the start or either
@@ -182,7 +237,7 @@ def check_kernels(frames, cfg, checks: Checks) -> dict:
         ok = ((xk - xp).abs() <= 0.2) | (knife & ((xk - xp).abs() <= 5e-3 * lag.abs()))
         e1 = float((xk - xp)[valid].abs().max())
         nknife = int((valid & knife & ((xk - xp).abs() > 0.2)).sum())
-        checks.true("refine x [f32]", bool(ok[valid].all()),
+        checks.true(f"refine x [{tag}]", bool(ok[valid].all()),
                     f"max_abs_err {e1:.3e} (atol 0.2; {nknife} knife-edge lanes beyond it, within lag rtol 5e-3)")
     ftol = (1e-5, 1e-7) if f64 else (1e-3, 5e-4)
     e2 = checks.close(f"refine f(x) [{tag}]", fk, fp, *ftol, mask=valid)
@@ -207,22 +262,206 @@ def check_kernels(frames, cfg, checks: Checks) -> dict:
     checks.equal(f"roots count [{tag}]", rk[2], rp[2])
     checks.equal(f"roots status [{tag}]", rk[3], rp[3])
 
-    # Bit-exact over the first 4,096 frames, as one recording (the slice's
-    # call) and as 8 recordings of 512 frames (the carry resets at each). The
-    # plain scan is a Python loop over frames: it runs on CPU copies, where
+    # Bit-exact. One recording: over the first 4,096 frames, as the path's
+    # call and as 8 recordings of 512 frames (the carry resets at each).
+    # With file_len: the whole block, as the path calls it. The plain scan is
+    # a Python loop over a recording's frames: it runs on CPU copies, where
     # a step takes a fraction of its time on the card.
     rf, rb, ef, eb = args["formant_scan"]
-    head = [t.cpu() for t in (rf[:4096], rb[:4096], ef, eb)]
+    if file_len is None:
+        h = min(4096, len(rf) // 8 * 8)
+        cases = ((f"first {h} frames, one recording", len(rf), None, h),
+                 (f"first {h} frames, 8 x {h // 8} frames", h, h // 8, h))
+    else:
+        cases = ((f"{len(rf) // file_len} recordings x {file_len} frames", len(rf), file_len, len(rf)),)
     err = 0.0
-    for label, frames_in, file_len in (("one recording", len(rf), None), ("8 x 512 frames", 4096, 512)):
-        fk_, bk_ = formant_scan.formant_scan(rf[:frames_in], rb[:frames_in], ef, eb, file_len=file_len)
-        fk_, bk_ = fk_[:4096].cpu(), bk_[:4096].cpu()
-        fp_, bp_ = formant_scan.formant_scan_plain(*head, file_len=file_len)
-        checks.equal(f"formant_scan freqs [{tag}, first 4096 frames, {label}]", fk_, fp_)
-        checks.equal(f"formant_scan bws [{tag}, first 4096 frames, {label}]", bk_, bp_)
+    for case, frames_in, fl, cmp in cases:
+        fk_, bk_ = formant_scan.formant_scan(rf[:frames_in], rb[:frames_in], ef, eb, file_len=fl)
+        fk_, bk_ = fk_[:cmp].cpu(), bk_[:cmp].cpu()
+        fp_, bp_ = formant_scan.formant_scan_plain(*[t.cpu() for t in (rf[:cmp], rb[:cmp], ef, eb)], file_len=fl)
+        checks.equal(f"formant_scan freqs [{tag}, {case}]", fk_, fp_)
+        checks.equal(f"formant_scan bws [{tag}, {case}]", bk_, bp_)
         err = max(err, float((fk_ - fp_).abs().max()), float((bk_ - bp_).abs().max()))
     errs["formant_scan"] = err
     return errs
+
+
+def bench_kernel_inputs(frames, out, cfg):
+    """Kernel E's and F's arguments at a path's shapes: the Hann-windowed
+    frames as (F, n), and the DP inputs that `pitch_path` builds from the
+    path's own candidates and frame intensities, (F, C) for one recording
+    or (B, F, C) for a block of B."""
+    import torch
+
+    from voxtpu_torch.pipeline import _intensity, _local_peak
+    from voxtpu_torch.viterbi import PathConfig, path_inputs
+    from voxtpu_torch.windows import hann
+
+    n = frames.shape[-1]
+    windowed = (frames * torch.as_tensor(hann(n), dtype=frames.dtype, device=frames.device)).reshape(-1, n)
+    pc = PathConfig(ceiling=cfg.pitch.fmax)
+    local, fs, voiced = path_inputs(
+        out["pitch_candidates_freq"], out["pitch_candidates_strength"], out["pitch_candidates_valid"],
+        pc, local_intensity=_intensity(_local_peak(frames)),
+    )
+    return {"ct_fused": (windowed.contiguous(), 2 * n),
+            "viterbi": (local, fs, voiced, pc.octave_jump_cost, pc.voiced_unvoiced_cost)}
+
+
+def check_ct_fused(x, nfft: int, checks: Checks, tag: str) -> float:
+    """Kernel E against its plain version on (F, n) frames x; returns the
+    max abs error over both outputs."""
+    import torch
+
+    from voxtpu_torch.ops import ct_fused
+
+    hk, ak = ct_fused.ct_fused_power_ac(x, nfft)
+    hp, ap = ct_fused.ct_fused_power_ac_plain(x, nfft)
+    if x.dtype == torch.float64:
+        # tests/test_autocorr.py:148-152: the half spectrum over its largest
+        # value at rtol 1e-9 / atol 1e-12, the lags at rtol 1e-9 / atol 1e-9.
+        scale = hp.abs().max()
+        checks.close(f"ct_fused half / max [{tag}]", hk / scale, hp / scale, 1e-9, 1e-12)
+        checks.close(f"ct_fused ac [{tag}]", ak, ap, 1e-9, 1e-9)
+    else:
+        # Per frame, relative to the frame's largest value (CT_FUSED_F32_TOL).
+        for name, k, p in (("half", hk, hp), ("ac", ak, ap)):
+            scale = p.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+            checks.close(f"ct_fused {name} / frame max [{tag}]", k / scale, p / scale, 0.0, CT_FUSED_F32_TOL)
+    return max(float((hk - hp).abs().max()), float((ak - ap).abs().max()))
+
+
+def check_new_kernels(args: dict, checks: Checks, label: str) -> dict:
+    """Kernels E and F against their plain versions on the same inputs, for
+    one dtype. Returns {kernel: max_abs_err}."""
+    import torch
+
+    from voxtpu_torch.ops import viterbi
+
+    x, nfft = args["ct_fused"]
+    tag = f"{label}, {'f64' if x.dtype == torch.float64 else 'f32'}"
+    errs = {"ct_fused": check_ct_fused(x, nfft, checks, tag)}
+
+    # Paths bit-identical, as the path calls the kernel; one recording is
+    # also split into 16 recordings of one launch (its first 16 * (F // 16)
+    # frames).
+    local, fs, voiced, ojc, vuc = args["viterbi"]
+    cases = [(tuple(local.shape), (local, fs, voiced))]
+    if local.dim() == 2:
+        B, Fb = CORPUS_FILES, local.shape[0] // CORPUS_FILES
+        cases.append(((B, Fb, local.shape[1]),
+                      [t[: B * Fb].reshape(B, Fb, -1).contiguous() for t in (local, fs, voiced)]))
+    err = 0.0
+    for shape, inputs in cases:
+        pk = viterbi.viterbi_path(*inputs, ojc, vuc)
+        pp = viterbi.viterbi_path_plain(*inputs, ojc, vuc)
+        checks.equal(f"viterbi path [{tag}, {' x '.join(map(str, shape))}, one launch]", pk, pp)
+        err = max(err, float((pk - pp).abs().max()))
+    errs["viterbi"] = err
+    return errs
+
+
+def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks, file_len: int | None = None) -> dict:
+    """Every kernel a path launches against its plain version at that
+    path's shapes, in float64 and float32. frames64: the path's float64
+    frames, (F, n) or (B, F, n); outs: {dtype: the path's output in that
+    dtype} (its candidates feed kernel F). Returns {dtype: {kernel: err}}."""
+    errs = {}
+    for dt, out in outs.items():
+        frames = frames64.to(dt)
+        print(f"kernels vs plain, {label}, {dt}:")
+        errs[dt] = check_kernels(frames.reshape(-1, frames.shape[-1]), cfg, checks, label, file_len)
+        if cfg.pitch.viterbi:
+            errs[dt].update(check_new_kernels(bench_kernel_inputs(frames, out, cfg), checks, label))
+    return errs
+
+
+def check_ct_fused_gate(checks: Checks, dev) -> None:
+    """Kernel E against its plain version at every frame length its shape
+    gate admits, in both dtypes: 256 frames of seeded noise each."""
+    import torch
+
+    from voxtpu_torch.ops.ct_fused import ct_fused_supported
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.float64, torch.float32):
+        n = 128
+        while ct_fused_supported(n, 2 * n, dt):
+            x = torch.randn((256, n), generator=gen, dtype=dt, device=dev)
+            check_ct_fused(x, 2 * n, checks, f"gate, n={n}, {'f64' if dt == torch.float64 else 'f32'}")
+            n *= 2
+        checks.true(f"ct_fused gate reaches n=4096 in {dt}", n > 4096, f"(first refused n={n})")
+
+
+def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
+    """The least ms for the work: the larger of its bytes over the memory
+    rate and its operations over the compute rate (ops_s: operations over
+    their rate, in seconds)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_bytes, ops_s) * 1e3, "bytes" if t_bytes >= ops_s else "operations")
+
+
+def kernel_bounds(cli: dict, bench: dict) -> dict:
+    """Each kernel's bound in float32 at the inputs it is timed on (see
+    KERNELS): bytes are each input read once and each output written once;
+    operations are counted from this run's inputs, each arithmetic
+    operation, division or cos as one."""
+    import torch
+
+    y, x0, valid, offset, max_depth, T = cli["refine"]
+    # A: Brent evaluates every candidate at v = x0 - 1 + 0.382 * 2 first and
+    # once more at least; each evaluation sums md + 1 taps a side, 11
+    # operations a tap and side, md >= the reference's depth clip at
+    # floor(x0) - 1. Candidates that are not valid take the first only.
+    md = torch.clamp(offset + torch.floor(x0) - 1 + 1, min=0).clamp(max=min(max_depth, T))
+    evals = torch.where(valid, 2.0, 1.0).to(md.dtype)
+    ops_a = float((evals * (md + 1) * 2 * 11).sum())
+    B, C = x0.shape
+    bytes_a = y.numel() * 4 + B * C * (4 + 1) + 2 * B * C * 4
+    x, p = cli["burg"]
+    Fb, n = x.shape
+    # B: each order sums num and denum over n - i values in float64 (6
+    # operations a value) and updates b1, b2 in float32 (4).
+    f64_ops = sum(6.0 * (n - i) for i in range(1, p + 1)) * Fb
+    f32_ops = sum(4.0 * (n - i) for i in range(1, p)) * Fb
+    bytes_b = Fb * n * 4 + Fb * (p * 4 + 4)
+    c_re, _ = cli["find_roots"]
+    Fr, N = c_re.shape
+    # C: N - 3 rounds of 20 Laguerre steps; a step evaluates p, p' and p''
+    # over the live degree (3 complex multiply-adds, 24 operations, a
+    # coefficient) plus about 60 for the square root and the division.
+    degs = [N - 1 - r for r in range(max(N - 3, 0))]
+    ops_c = Fr * 20 * sum(24 * d + 60 for d in degs)
+    bytes_c = Fr * N * 2 * 4 + Fr * (N - 1) * 2 * 4 + Fr * 8
+    rf, _, ef, _ = cli["formant_scan"]
+    Fs, R = rf.shape
+    L = ef.shape[0]
+    # D: per frame, min(L, 6) nearest-match scans over R values (3
+    # operations each) and about 200 for the slot logic.
+    ops_d = Fs * (min(L, 6) * R * 3 + 200)
+    bytes_d = Fs * R * 2 * 4 + Fs * L * 2 * 4
+    xe, nfft = bench["ct_fused"]
+    Fe, ne = xe.shape
+    # E: two transforms of nfft points whose time side is real (the input,
+    # and the lags of a real even spectrum): 2.5 nfft log2 nfft each, half
+    # a complex radix-2 transform's 5 nfft log2 nfft. The power is 3
+    # operations on each of the nfft / 2 + 1 bins.
+    ops_e = Fe * (2 * 2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1))
+    bytes_e = Fe * ne * 4 + Fe * (ne // 2 + 1) * 4 + Fe * ne * 4
+    local = bench["viterbi"][0]
+    Fv, Cv = local.shape
+    # F: per frame C^2 costs (division, log2, |.|, product, difference and
+    # compare: 6 operations).
+    ops_f = Fv * Cv * Cv * 6
+    bytes_f = Fv * Cv * (4 + 4 + 1) + Fv * 4
+    return {
+        "refine": bound(bytes_a, ops_a / F32_OPS_S),
+        "burg": bound(bytes_b, f64_ops / F64_OPS_S + f32_ops / F32_OPS_S),
+        "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
+        "formant_scan": bound(bytes_d, ops_d / F32_OPS_S),
+        "ct_fused": bound(bytes_e, ops_e / F32_OPS_S),
+        "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
+    }
 
 
 def knife_rtol(f0, sample_rate: float, base: float):
@@ -253,17 +492,49 @@ def compare_slice(name, got: dict, want: dict, sample_rate: float, checks: Check
     checks.equal(f"{name} hnr_db finite", torch.isfinite(got["hnr_db"]), torch.isfinite(want["hnr_db"]))
 
 
-def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Checks) -> None:
+def frame_err(key, a, b, f0_64):
+    """Per-frame |a - b| (max over a frame's values), on the CPU; the f0
+    budget holds on frames voiced in float64 only."""
+    import torch
+
+    err = (a.cpu().double() - b.cpu().double()).abs()
+    if err.dim() > 1:
+        err = err.amax(dim=-1)
+    return torch.where(f0_64.cpu() > 0, err, 0.0) if key == "f0" else err
+
+
+def hold_budgets(label: str, out32: dict, out64: dict, plain_err, checks: Checks) -> None:
     """float32 against float64 on the card within BUDGETS; float64 is the
-    only reference.
+    only reference. Every frame over a budget on the card must be over it
+    in the plain path too: plain_err(key, idx) gives the plain path's
+    float32-against-float64 error at frames idx."""
+    import torch
+
+    for key, budget in BUDGETS.items():
+        err = frame_err(key, out32[key], out64[key], out64["f0"])
+        idx = (err > budget).nonzero().flatten()
+        detail = f"max_abs_err {float(err.max()):.3e} (budget {budget:g}), {len(idx)} frames over"
+        plain_over = torch.ones(len(idx), dtype=torch.bool)
+        if len(idx):
+            perr = plain_err(key, idx)
+            plain_over = perr > budget
+            detail += (f"; the plain path's float32 is over it on {int(plain_over.sum())} of them "
+                       f"(max {float(perr.max()):.3e})")
+            if not plain_over.all():
+                detail += (f"; not on frames {idx[~plain_over].tolist()[:8]}: card err "
+                           f"{err[idx][~plain_over].tolist()[:8]}, plain err {perr[~plain_over].tolist()[:8]}")
+        checks.true(f"{label} f32 {key}", bool(plain_over.all()), detail)
+
+
+def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Checks) -> None:
+    """The CLI path's budgets (`hold_budgets`), the plain CPU path looked up
+    at the frames over a budget.
 
     float32 at the 2205/441 framing breaks the f0 budget in the plain
-    version too (PERF.md). So every frame over a budget on the card is
-    looked up in the plain CPU path, its float32 against its own float64 on
-    that frame: the check fails unless the plain path is over the budget
-    there too."""
-    import dataclasses
-
+    version too (PERF.md). Pitch and MFCC are frame-local, so those frames
+    alone run; the formant tracker carries its estimates from frame to
+    frame, so the candidates of every frame up to the last one looked up
+    run, tracked by kernel D (bit-exact with its plain version, phase 3)."""
     import torch
 
     from voxtpu_torch.frame import frame_signal
@@ -273,13 +544,6 @@ def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Che
     dev = out32["f0"].device
     frames = frame_signal(torch.as_tensor(signal), cfg.frame_len, cfg.hop)
 
-    def frame_err(key, a, b, f0_64):
-        err = (a.cpu().double() - b.cpu().double()).abs()
-        if err.dim() > 1:
-            err = err.amax(dim=-1)
-        # the f0 budget holds on frames voiced in float64
-        return torch.where(f0_64.cpu() > 0, err, 0.0) if key == "f0" else err
-
     def off(stage_cfg):
         return dataclasses.replace(stage_cfg, enabled=False)
 
@@ -288,9 +552,6 @@ def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Che
         if key != "formant_freqs":  # frame-local: those frames alone
             out = analyze_frames(frames[idx].to(dt), dataclasses.replace(cfg, formant=off(cfg.formant)))
             return out[key], out["f0"]
-        # The tracker carries its estimates from frame to frame: candidates of
-        # every frame up to the last one in idx, tracked by kernel D on the
-        # card (bit-exact with its plain version, phase 3).
         sub = dataclasses.replace(cfg, pitch=off(cfg.pitch), mfcc=off(cfg.mfcc))
         out = analyze_frames(frames[: int(idx.max()) + 1].to(dt), sub, return_formant_candidates=True)
         est = torch.as_tensor(cfg.formant.estimates, dtype=dt, device=dev)
@@ -298,26 +559,75 @@ def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Che
                                 torch.full_like(est, cfg.formant.estimate_bandwidth))
         return freqs[idx.to(dev)], None
 
-    for key, budget in BUDGETS.items():
-        err = frame_err(key, out32[key], out64[key], out64["f0"])
-        idx = (err > budget).nonzero().flatten()
-        detail = f"max_abs_err {float(err.max()):.3e} (budget {budget:g}), {len(idx)} frames over"
-        plain_over = torch.ones(len(idx), dtype=torch.bool)
-        if len(idx):
-            v32, _ = plain(key, idx, torch.float32)
-            v64, f0_64 = plain(key, idx, torch.float64)
-            perr = frame_err(key, v32, v64, f0_64)
-            plain_over = perr > budget
-            detail += (f"; the plain CPU path's float32 is over it on {int(plain_over.sum())} of them "
-                       f"(max {float(perr.max()):.3e})")
-            if not plain_over.all():
-                detail += (f"; not on frames {idx[~plain_over].tolist()[:8]}: card err "
-                           f"{err[idx][~plain_over].tolist()[:8]}, plain err {perr[~plain_over].tolist()[:8]}")
-        checks.true(f"f32 {key}", bool(plain_over.all()), detail)
+    def plain_err(key, idx):
+        v32, _ = plain(key, idx, torch.float32)
+        v64, f0_64 = plain(key, idx, torch.float64)
+        return frame_err(key, v32, v64, f0_64)
+
+    hold_budgets("cli", out32, out64, plain_err, checks)
 
 
-def profile_slice(sig, cfg, card: str) -> None:
-    """One warm `analyze` under torch.profiler. From the trace alone: the
+def plain_periodic(one: np.ndarray, tiles: int, cfg, dt, frames_total: int, dev) -> dict:
+    """The plain CPU path's budget keys over `tiles` copies of `one`, in
+    dtype dt, without running every frame on the CPU.
+
+    len(one) is a whole number P of hops, so frame t and frame t + P hold
+    the same samples. The frame-local stages (pitch candidates, resonances,
+    MFCC) run in plain PyTorch on the CPU over the first P frames and are
+    tiled to every frame; they hold no state across frames, so this equals
+    running them over all frames. The stages with a carry run over all
+    frames: the path search as its plain DP on the CPU, the formant tracker
+    as kernel D on the card (bit-exact with its plain version, phase 6)."""
+    import torch
+
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.ops.formant_scan import formant_scan
+    from voxtpu_torch.pipeline import _intensity, _local_peak, analyze_frames
+    from voxtpu_torch.viterbi import PathConfig, pitch_path
+
+    n, hop = cfg.frame_len, cfg.hop
+    P, rem = divmod(len(one), hop)
+    if rem or tiles < 2:
+        raise ValueError("plain_periodic needs a recording of a whole number of hops, tiled")
+    head = np.tile(one, tiles)[: (P - 1) * hop + n]
+    frames = frame_signal(torch.as_tensor(head, dtype=dt), n, hop)  # the first P frames, CPU
+    inner = dataclasses.replace(cfg, pitch=dataclasses.replace(cfg.pitch, viterbi=False))
+    out = analyze_frames(frames, inner, return_formant_candidates=True)
+    reps = -(-frames_total // P)
+
+    def tile(v):
+        return v.repeat((reps,) + (1,) * (v.dim() - 1))[:frames_total]
+
+    est = torch.as_tensor(cfg.formant.estimates, dtype=dt, device=dev)
+    freqs, _ = formant_scan(tile(out["resonance_freqs"]).to(dev), tile(out["resonance_bws"]).to(dev), est,
+                            torch.full_like(est, cfg.formant.estimate_bandwidth))
+    f0, s0 = pitch_path(tile(out["pitch_candidates_freq"]), tile(out["pitch_candidates_strength"]),
+                        tile(out["pitch_candidates_valid"]), PathConfig(ceiling=cfg.pitch.fmax),
+                        local_intensity=_intensity(tile(_local_peak(frames))))
+    return {"f0": f0, "f0_strength": s0, "formant_freqs": freqs.cpu(), "mfcc": tile(out["mfcc"])}
+
+
+def check_health(label: str, out: dict, checks: Checks) -> None:
+    """Finite outputs (hnr_db is -inf exactly where f0 == 0), status 0 on
+    every frame, and the median f0 and F1 printed."""
+    import torch
+
+    for k, v in out.items():
+        if v.is_floating_point():
+            fin = torch.isfinite(v)
+            if k == "hnr_db":
+                checks.true(f"{label} hnr_db finite exactly where f0 > 0", bool((fin == (out["f0"] > 0)).all()))
+                fin = fin | (v == -np.inf)
+            checks.true(f"{label} {k} finite", bool(fin.all()))
+    nz = int(out["status"].count_nonzero())
+    checks.true(f"{label} status 0 on every frame", nz == 0, f"({nz} nonzero)")
+    voiced = out["f0"] > 0
+    print(f"  {label}: voiced frames {int(voiced.sum())} of {out['f0'].numel()}; median f0 "
+          f"{float(out['f0'][voiced].median()):.2f} Hz, median F1 {float(out['formant_freqs'][..., 0].median()):.1f} Hz")
+
+
+def profile_path(label: str, fn, card: str) -> None:
+    """One warm run of fn under torch.profiler. From the trace alone: the
     device's busy time (union of its activities' intervals), the traced span
     (first recorded op to last end) and so the idle share, and the
     activities with the most device time. The profiler's own host cost
@@ -327,10 +637,8 @@ def profile_slice(sig, cfg, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from voxtpu_torch.pipeline import analyze
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        analyze(sig, cfg)
+        fn()
         torch.cuda.synchronize()
     events = prof.events()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -345,7 +653,7 @@ def profile_slice(sig, cfg, card: str) -> None:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    print(f"profile, one warm float32 analyze [{card}]: device busy {busy / 1e3:.3f} ms of a "
+    print(f"profile, one warm float32 {label} [{card}]: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms traced span, idle share {1 - busy / span:.4f}; {len(device)} device activities")
     by_name = collections.defaultdict(lambda: [0, 0])
     for e in device:
@@ -365,10 +673,16 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from voxtpu_torch.frame import frame_signal
     from voxtpu_torch.io_wav import read_wav
-    from voxtpu_torch.ops import burg, find_roots, formant_scan, kernels, refine
-    from voxtpu_torch.pipeline import CLI_DEFAULT_44K, analyze
+    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, refine, viterbi
+    from voxtpu_torch.pipeline import (
+        BENCH_44K, CLI_DEFAULT_44K, FLAGSHIP_44K, analyze, analyze_batch_padded, analyze_long,
+    )
 
-    ops = {"refine": refine, "burg": burg, "find_roots": find_roots, "formant_scan": formant_scan}
+    wrappers = {
+        "refine": refine.refine, "burg": burg.burg, "find_roots": find_roots.find_roots,
+        "formant_scan": formant_scan.formant_scan, "ct_fused": ct_fused.ct_fused_power_ac,
+        "viterbi": viterbi.viterbi_path,
+    }
     checks = Checks()
     t_start = t_phase = time.perf_counter()
 
@@ -377,6 +691,17 @@ def main() -> None:
         now = time.perf_counter()
         print(f"[{name}: {now - t_phase:.1f} s]")
         t_phase = now
+
+    def run_counted(label: str, fn):
+        """fn() with every launch count set to 0 just before; returns its
+        result and the counts just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"{label}: launches {counts}")
+        return out, counts
 
     # --- 1. the card
     smi = subprocess.run(
@@ -401,53 +726,35 @@ def main() -> None:
     # --- data: 126 tiles of the bundled recording
     cfg = CLI_DEFAULT_44K
     sr = cfg.sample_rate
-    wav = read_wav(str(FIXTURE))
-    signal = np.tile(np.asarray(wav.samples, dtype=np.float64), TILES)
+    one = np.asarray(read_wav(str(FIXTURE)).samples, dtype=np.float64)
+    signal = np.tile(one, TILES)
     sig64 = torch.as_tensor(signal, device=dev)
     sig32 = sig64.float()
     frames64 = frame_signal(sig64, cfg.frame_len, cfg.hop)
     F = frames64.shape[0]
     audio_s = len(signal) / sr
-    print(f"slice: {len(signal)} samples ({audio_s:.1f} s), {F} frames of {cfg.frame_len}, hop {cfg.hop}")
+    print(f"CLI path: {len(signal)} samples ({audio_s:.1f} s), {F} frames of {cfg.frame_len}, hop {cfg.hop}")
     checks.true("frame count", F == EXPECTED_FRAMES, f"{F}")
 
-    # --- 3. kernels against their plain versions
+    # --- 3. kernels A-D against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("kernels vs plain, float64:")
-    errs64 = check_kernels(frames64, cfg, checks)
-    print("kernels vs plain, float32:")
-    errs32 = check_kernels(frames64.float(), cfg, checks)
+    path_errs = {"cli": check_path_kernels("CLI path", frames64, cfg,
+                                           {torch.float64: None, torch.float32: None}, checks)}
     del frames64
     phase_took("phase 3, kernels vs plain")
 
-    # --- 4. the slice, float32
+    # --- 4. the CLI path, float32
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
     torch.cuda.synchronize()
-    for name, op in ops.items():
-        getattr(op, name).launches = 0
-    out32 = analyze(sig32, cfg)
-    torch.cuda.synchronize()
-    launches = {name: getattr(op, name).launches for name, op in ops.items()}
-    print(f"slice float32: launches {launches}")
-    for name, count in launches.items():
-        checks.true(f"{name} launched on the main path", count > 0, f"({count})")
+    out32, cli_launches = run_counted("CLI path float32", lambda: analyze(sig32, cfg))
+    for name in ("refine", "burg", "find_roots", "formant_scan"):
+        checks.true(f"{name} launched on the CLI path", cli_launches[name] > 0, f"({cli_launches[name]})")
     shapes = {k: tuple(v.shape) for k, v in out32.items()}
     checks.true("output shapes", shapes["f0"] == (F,) and shapes["formant_freqs"] == (F, 4)
                 and shapes["mfcc"] == (F, 13) and shapes["pitch_candidates_freq"] == (F, 33), str(shapes))
-    for k, v in out32.items():
-        if v.is_floating_point():
-            fin = torch.isfinite(v)
-            if k == "hnr_db":
-                checks.true("hnr_db finite exactly where f0 > 0", bool((fin == (out32["f0"] > 0)).all()))
-                fin = fin | (v == -np.inf)
-            checks.true(f"{k} finite", bool(fin.all()))
-    checks.true("status 0 on every frame", int(out32["status"].count_nonzero()) == 0,
-                f"({int(out32['status'].count_nonzero())} nonzero)")
-    voiced = out32["f0"] > 0
-    print(f"  voiced frames: {int(voiced.sum())} of {F}; median f0 {float(out32['f0'][voiced].median()):.2f} Hz, "
-          f"median F1 {float(out32['formant_freqs'][:, 0].median()):.1f} Hz")
-    phase_took("phase 4, the slice")
+    check_health("CLI path", out32, checks)
+    phase_took("phase 4, the CLI path")
 
     # --- 5. parity
     print("parity: float64 on the card vs the plain CPU path, first 2 s:")
@@ -463,38 +770,166 @@ def main() -> None:
     del out64, card64, cpu64
     phase_took("phase 5, float32 budgets")
 
-    # --- 6. times (float32, the slice's shapes)
-    e2e_ms = sync_ms(lambda: analyze(sig32, cfg))
-    print(f"end to end, float32: {e2e_ms:.2f} ms for {audio_s:.1f} s of audio = {audio_s / (e2e_ms / 1e3):.1f} "
-          f"audio-s/s [{card}]")
-    profile_slice(sig32, cfg, card)
+    # --- 6. the bench path: BENCH_44K with the Viterbi path search
+    bcfg = dataclasses.replace(BENCH_44K, pitch=dataclasses.replace(BENCH_44K.pitch, viterbi=True))
+    bframes64 = frame_signal(sig64, bcfg.frame_len, bcfg.hop)
+    FB = bframes64.shape[0]
+    print(f"bench path: {FB} frames of {bcfg.frame_len}, hop {bcfg.hop}, Viterbi on")
+    checks.true("bench frame count", FB == BENCH_FRAMES, f"{FB}")
+    analyze(sig32[: 50 * bcfg.hop + bcfg.frame_len], bcfg)
+    torch.cuda.synchronize()
+    bout32, bench_launches = run_counted("bench path float32", lambda: analyze(sig32, bcfg))
+    for name, count in bench_launches.items():
+        checks.true(f"{name} launched on the bench path", count > 0, f"({count})")
+    check_health("bench path", bout32, checks)
+    bout64 = analyze(sig64, bcfg)
+    path_errs["bench"] = check_path_kernels(
+        "bench path", bframes64, bcfg, {torch.float64: bout64, torch.float32: bout32}, checks)
+    bench_args32 = bench_kernel_inputs(bframes64.float(), bout32, bcfg)
+    del bframes64
+    phase_took("phase 6, bench path and its kernels vs plain")
+
+    print("bench path parity: float64 on the card vs the plain CPU path, first 2 s:")
+    compare_slice("bench f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), bcfg),
+                  analyze(torch.as_tensor(head), bcfg), sr, checks)
+    print("bench path: float32 vs float64 on the card, whole signal, against the plain path:")
+    plain = {dt: plain_periodic(one, TILES, bcfg, dt, FB, dev) for dt in (torch.float32, torch.float64)}
+    hold_budgets(
+        "bench", bout32, bout64,
+        lambda key, idx: frame_err(key, plain[torch.float32][key][idx], plain[torch.float64][key][idx],
+                                   plain[torch.float64]["f0"][idx]),
+        checks,
+    )
+    print("bench path: analyze_long (chunks of 4096 frames) vs analyze, float64 on the card:")
+    compare_slice("bench analyze_long vs analyze", analyze_long(sig64, bcfg, chunk_frames=4096), bout64, sr, checks)
+    del bout64, plain
+    phase_took("phase 6, bench parity, budgets, analyze_long")
+
+    # --- 7. the corpus block
+    rng = np.random.default_rng(0)
+    gains = rng.uniform(0.5, 2.0, CORPUS_FILES)
+    trims = rng.integers(0, int(sr), CORPUS_FILES)
+    recs = [g * np.tile(one, CORPUS_TILES)[: CORPUS_TILES * len(one) - t] for g, t in zip(gains, trims)]
+    lengths = [len(r) for r in recs]
+    block = np.zeros((CORPUS_FILES, max(lengths)))
+    for b, r in enumerate(recs):
+        block[b, : len(r)] = r
+    block64 = torch.as_tensor(block, device=dev)
+    block32 = block64.float()
+    corpus_s = sum(lengths) / sr
+    cframes = [(n - bcfg.frame_len) // bcfg.hop + 1 for n in lengths]
+    print(f"corpus block: {CORPUS_FILES} recordings, {corpus_s:.1f} s, {sum(cframes)} frames")
+    cout64, corpus_launches = run_counted(
+        "corpus block float64", lambda: analyze_batch_padded(block64, lengths, bcfg))
+    for name in ("formant_scan", "viterbi"):
+        checks.true(f"{name} launched once for the block", corpus_launches[name] == 1, f"({corpus_launches[name]})")
+    for b, r in enumerate(recs):
+        row = {k: v[b, : cframes[b]] for k, v in cout64.items()}
+        compare_slice(f"corpus row {b} vs analyze", row, analyze(torch.as_tensor(r, device=dev), bcfg), sr, checks)
+    check_health("corpus block", {k: torch.cat([v[b, : nf] for b, nf in enumerate(cframes)])
+                                  for k, v in cout64.items()}, checks)
+    # The block's frames as the path builds them: (16, F, n), each recording's
+    # frames past its end zeroed; kernel D takes file_len = F.
+    cfr64 = frame_signal(block64, bcfg.frame_len, bcfg.hop)
+    cmask = torch.arange(cfr64.shape[1], device=dev)[None, :] < torch.as_tensor(cframes, device=dev)[:, None]
+    cfr64 = cfr64 * cmask[:, :, None].double()
+    path_errs["corpus"] = check_path_kernels(
+        "corpus block", cfr64, bcfg,
+        {torch.float64: cout64, torch.float32: analyze_batch_padded(block32, lengths, bcfg)},
+        checks, file_len=cfr64.shape[1])
+    del cout64, cfr64
+    phase_took("phase 7, corpus block and its kernels vs plain")
+
+    # --- 8. the flagship path: FLAGSHIP_44K (2048/512) with the Viterbi path
+    # search, and kernel E at every frame length its gate admits
+    fcfg = dataclasses.replace(FLAGSHIP_44K, pitch=dataclasses.replace(FLAGSHIP_44K.pitch, viterbi=True))
+    fframes64 = frame_signal(sig64, fcfg.frame_len, fcfg.hop)
+    FF = fframes64.shape[0]
+    print(f"flagship path: {FF} frames of {fcfg.frame_len}, hop {fcfg.hop}, Viterbi on")
+    analyze(sig32[: 50 * fcfg.hop + fcfg.frame_len], fcfg)
+    torch.cuda.synchronize()
+    fout32, flag_launches = run_counted("flagship path float32", lambda: analyze(sig32, fcfg))
+    for name, count in flag_launches.items():
+        checks.true(f"{name} launched on the flagship path", count > 0, f"({count})")
+    check_health("flagship path", fout32, checks)
+    path_errs["flagship"] = check_path_kernels(
+        "flagship path", fframes64, fcfg, {torch.float64: analyze(sig64, fcfg), torch.float32: fout32}, checks)
+    del fframes64, fout32
+    print("flagship path parity: float64 on the card vs the plain CPU path, first 2 s:")
+    compare_slice("flagship f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), fcfg),
+                  analyze(torch.as_tensor(head), fcfg), sr, checks)
+    print("kernel E vs plain at every frame length its gate admits:")
+    check_ct_fused_gate(checks, dev)
+    phase_took("phase 8, flagship path and kernel E's gate")
+
+    # --- 9. times (float32)
+    e2e = {
+        "cli": (sync_ms(lambda: analyze(sig32, cfg)), audio_s),
+        "bench": (sync_ms(lambda: analyze(sig32, bcfg)), audio_s),
+        "corpus": (sync_ms(lambda: analyze_batch_padded(block32, lengths, bcfg)), corpus_s),
+        "flagship": (sync_ms(lambda: analyze(sig32, fcfg)), audio_s),
+    }
+    for path, (ms, secs) in e2e.items():
+        print(f"end to end, float32, {path} path: {ms:.2f} ms for {secs:.1f} s of audio = "
+              f"{secs / (ms / 1e3):.1f} audio-s/s [{card}]")
+    profile_path("CLI-path analyze", lambda: analyze(sig32, cfg), card)
+    profile_path("bench-path analyze (Viterbi on)", lambda: analyze(sig32, bcfg), card)
+
     args32, _ = kernel_inputs(frame_signal(sig32, cfg.frame_len, cfg.hop), cfg)
+    bounds = kernel_bounds(args32, bench_args32)
     prefix = 256  # the plain scan is a Python loop over frames: time a prefix
+    vprefix = 1024  # so is the plain DP
     rf, rb, ef, eb = args32["formant_scan"]
+    xe, nfft = bench_args32["ct_fused"]
+    lv, fv, vv, ojc, vuc = bench_args32["viterbi"]
+
+    def cufft_power_ac():
+        spec = torch.fft.rfft(xe, n=nfft, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : xe.shape[-1]]
+
     timing = {
-        "refine": (lambda: refine.refine(*args32["refine"]), lambda: refine.refine_plain(*args32["refine"]), F),
-        "burg": (lambda: burg.burg(*args32["burg"]), lambda: burg.burg_plain(*args32["burg"]), F),
+        "refine": (lambda: refine.refine(*args32["refine"]), lambda: refine.refine_plain(*args32["refine"]), F, None),
+        "burg": (lambda: burg.burg(*args32["burg"]), lambda: burg.burg_plain(*args32["burg"]), F, None),
         "find_roots": (lambda: find_roots.find_roots(*args32["find_roots"]),
-                       lambda: find_roots.find_roots_plain(*args32["find_roots"]), F),
+                       lambda: find_roots.find_roots_plain(*args32["find_roots"]), F, None),
         "formant_scan": (lambda: formant_scan.formant_scan(rf, rb, ef, eb),
-                         lambda: formant_scan.formant_scan_plain(rf[:prefix], rb[:prefix], ef, eb), prefix),
+                         lambda: formant_scan.formant_scan_plain(rf[:prefix], rb[:prefix], ef, eb), prefix, None),
+        "ct_fused": (lambda: ct_fused.ct_fused_power_ac(xe, nfft), lambda: ct_fused.ct_fused_power_ac_plain(xe, nfft),
+                     FB, cufft_power_ac),
+        "viterbi": (lambda: viterbi.viterbi_path(lv, fv, vv, ojc, vuc),
+                    lambda: viterbi.viterbi_path_plain(lv[:vprefix], fv[:vprefix], vv[:vprefix], ojc, vuc), vprefix, None),
     }
     rows = []
-    for name, (kfn, pfn, plain_frames) in timing.items():
-        ms = sync_ms(kfn)
-        plain_ms = sync_ms(pfn)
-        print(f"  {name}: kernel {ms:.3f} ms ({F} frames), plain {plain_ms:.3f} ms ({plain_frames} frames)")
-        src, replaces = KERNELS[name]
+    for name, (kfn, pfn, plain_frames, lfn) in timing.items():
+        src, replaces, path = KERNELS[name]
+        frames_k = F if path == "cli" else FB
+        ms = event_ms(kfn)
+        plain_ms = event_ms(pfn, runs=1 if plain_frames < frames_k else 3)
+        library_ms = event_ms(lfn) if lfn is not None else None
+        bound_ms, bound_by = bounds[name]
+        launches = (cli_launches if path == "cli" else bench_launches)[name]
+        print(f"  {name}: kernel {ms:.3f} ms ({frames_k} frames, {path} path), plain {plain_ms:.3f} ms "
+              f"({plain_frames} frames), library {'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
+              f"bound {bound_ms:.4f} ms by {bound_by}, {launches} launch(es) on the {path} path")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs32[name], "max_abs_err_f64": errs64[name],
-            "ms": ms, "plain_ms": plain_ms, "frames": F, "plain_frames": plain_frames,
+            "launches": launches, "max_abs_err": path_errs[path][torch.float32][name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err_f64": path_errs[path][torch.float64][name], "path": path, "frames": frames_k,
+            "plain_frames": plain_frames,
+            "launches_by_path": {"cli": cli_launches[name], "bench": bench_launches[name],
+                                 "corpus": corpus_launches[name], "flagship": flag_launches[name]},
+            "max_abs_err_by_path": {p: {"f32": e[torch.float32][name], "f64": e[torch.float64][name]}
+                                    for p, e in path_errs.items() if name in e[torch.float32]},
         })
 
-    phase_took("phase 6, times")
+    phase_took("phase 9, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
-    print(json.dumps({"e2e_ms": e2e_ms, "audio_s_per_s": audio_s / (e2e_ms / 1e3), "frames": F, "card": card}))
+    print(json.dumps({"e2e_ms": {k: v[0] for k, v in e2e.items()},
+                      "audio_s_per_s": {k: v[1] / (v[0] / 1e3) for k, v in e2e.items()},
+                      "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF}, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -32,12 +32,23 @@ from voxtpu.pipeline import MfccConfig as JaxMfccConfig
 from voxtpu.pipeline import PitchConfig as JaxPitchConfig
 
 from voxtpu_torch import autocorr, cplx, frame, io_wav, mfcc, waves, windows
-from voxtpu_torch.ops import burg, find_roots, formant_scan, kernels, refine
+from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, refine, viterbi
 from voxtpu_torch.pipeline import CLI_DEFAULT_44K, analyze, config_from_jax
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-10, atol=1e-10)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on the CPU at once: one torch thread
+    each keeps them from oversubscribing the cores (torch's default is a
+    thread per core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -90,15 +101,18 @@ def test_wrappers_reject_non_cuda_devices():
 
 
 def test_cpu_analyze_launches_no_kernel():
+    """A CPU tensor through every kernel's path (power-of-two frames take
+    kernel E's, viterbi=True kernel F's) runs the plain versions only."""
     rng = np.random.default_rng(5)
     sig = torch.as_tensor(rng.standard_normal(6000))
     cfg = config_from_jax(
-        JaxAnalysisConfig(8000.0, 512, 256, JaxPitchConfig(fmax=500.0), JaxFormantConfig(n_coeffs=8))
+        JaxAnalysisConfig(8000.0, 512, 256, JaxPitchConfig(fmax=500.0, viterbi=True), JaxFormantConfig(n_coeffs=8))
     )
     out = analyze(sig, cfg)
     frames = (6000 - 512) // 256 + 1
     assert out["f0"].shape == (frames,) and out["mfcc"].shape == (frames, 13)
-    for op in (refine.refine, burg.burg, find_roots.find_roots, formant_scan.formant_scan):
+    for op in (refine.refine, burg.burg, find_roots.find_roots, formant_scan.formant_scan,
+               ct_fused.ct_fused_power_ac, viterbi.viterbi_path):
         assert op.launches == 0
 
 
@@ -194,12 +208,19 @@ def test_power_and_autocorrelate_matches_jax(n):
 
 
 def test_autocorr_other_backends_not_ported():
+    """voxtpu's XLA matmul chain ("ct") and its 3-pass bf16 variant
+    ("ct_fused_x3") are not ported and raise; "ct_fused" (kernel E) runs and
+    matches voxtpu's fused kernel (tests/test_torch_ct_fused.py)."""
     x = torch.zeros((1, 256))
-    for backend in ("ct", "ct_fused"):
+    for backend in ("ct", "ct_fused_x3"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             autocorr.autocorrelate(x, backend=backend)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             autocorr.power_and_autocorrelate(x, backend=backend)
+    xr = np.random.default_rng(3).standard_normal((2, 256))
+    got = autocorr.power_and_autocorrelate(torch.as_tensor(xr), backend="ct_fused")
+    want = jac.power_and_autocorrelate(jnp.asarray(xr), backend="ct_fused_interpret")
+    np.testing.assert_allclose(_np(got[1]), np.asarray(want[1]), rtol=1e-9, atol=1e-9)
 
 
 @pytest.mark.parametrize("n, sr, exact", [(2205, 44100.0, True), (512, 11025.0, True), (800, 16000.0, False)])

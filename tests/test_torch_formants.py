@@ -45,6 +45,17 @@ jax_find_formants = jax.jit(jax_find_formants, static_argnums=(1, 2), static_arg
 jax_formant_candidates = jax.jit(jax_formant_candidates, static_argnums=(1, 2), static_argnames="resample_ratio")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on the CPU at once: one torch thread
+    each keeps them from oversubscribing the cores (torch's default is a
+    thread per core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @partial(jax.jit, static_argnames="backend")
 def _jax_find_roots(re, im, backend):
     return jax_find_roots(JC(re, im), backend=backend)

@@ -25,6 +25,7 @@ from voxtpu.cli import build_analysis_config
 from voxtpu.io_wav import read_wav
 
 from voxtpu_torch import errors
+from voxtpu_torch.device import NoCudaDevice
 from voxtpu_torch.pipeline import (
     CLI_DEFAULT_44K, analyze, analyze_frames, config_from_jax, f0_outputs, f0_outputs_host,
 )
@@ -38,6 +39,17 @@ SKILL_CFG = jp.AnalysisConfig(
 )
 KEYS = ["rms", "mfcc", "f0", "f0_strength", "hnr_db", "formant_freqs", "formant_bws", "status",
         "pitch_candidates_freq", "pitch_candidates_strength", "pitch_candidates_valid"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on the CPU at once: one torch thread
+    each keeps them from oversubscribing the cores (torch's default is a
+    thread per core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run_both(samples, jcfg):
@@ -169,9 +181,28 @@ def test_fast_mode_f32_within_budget_of_f64():
 
 
 def test_viterbi_not_yet_ported():
-    cfg = dataclasses.replace(CLI_DEFAULT_44K, pitch=dataclasses.replace(CLI_DEFAULT_44K.pitch, viterbi=True))
-    with pytest.raises(NotImplementedError, match="viterbi"):
-        analyze(torch.zeros(5000), cfg)
+    """PitchConfig.viterbi now runs (kernel F's plain version on the CPU):
+    at the skill config with viterbi=True the port's features equal
+    voxtpu's, f0 along the path included."""
+    wav = read_wav(os.path.join(FIX, "short_sample.wav"))
+    jcfg = dataclasses.replace(SKILL_CFG, pitch=dataclasses.replace(SKILL_CFG.pitch, viterbi=True))
+    got, want = _run_both(wav.samples, jcfg)
+    for key in KEYS:
+        _assert_key(key, got, want, 11025.0)
+    assert np.all((got["f0"] > 99.0) & (got["f0"] < 101.2))
+
+
+def test_numpy_input_runs_on_the_card_unless_device_cpu():
+    """An entry point sends a NumPy array to the card: with none it raises.
+    device="cpu" gives what a CPU tensor gives."""
+    wav = read_wav(os.path.join(FIX, "short_sample.wav"))
+    cfg = config_from_jax(SKILL_CFG)
+    if not torch.cuda.is_available():
+        with pytest.raises(NoCudaDevice):
+            analyze(wav.samples, cfg)
+    a = analyze(wav.samples, cfg, device="cpu")
+    b = analyze(torch.as_tensor(wav.samples), cfg)
+    assert all(a[k].device.type == "cpu" and torch.equal(a[k], b[k]) for k in b)
 
 
 def test_f0_outputs_host_matches_f0_outputs():

@@ -33,6 +33,17 @@ jax_improve_extremum_sinc = jax.jit(jax_improve_extremum_sinc, static_argnums=(1
                                     static_argnames=("max_x", "backend"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on the CPU at once: one torch thread
+    each keeps them from oversubscribing the cores (torch's default is a
+    thread per core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lag_rows(seed, n, B, period=37.0, dtype=np.float64):
     """Smooth-ish lag buffers with real peaks, like a normalized
     autocorrelation (tests/test_pallas.py:15-30)."""

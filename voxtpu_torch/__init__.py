@@ -1,6 +1,6 @@
 """voxtpu_torch: the PyTorch + CUDA port of voxtpu for one NVIDIA H100.
 
-Same modules and public names as `voxtpu`, in plain PyTorch around four
+Same modules and public names as `voxtpu`, in plain PyTorch around six
 hand-written CUDA kernels (`voxtpu_torch/csrc/*.cu`, built on first use by
 `voxtpu_torch.ops.kernels`):
 
@@ -8,12 +8,17 @@ hand-written CUDA kernels (`voxtpu_torch/csrc/*.cu`, built on first use by
 - Burg LPC                                  (`ops/burg.py`)
 - Laguerre + deflation polynomial roots     (`ops/find_roots.py`)
 - the McCandless formant-slot scan          (`ops/formant_scan.py`)
+- power spectrum + autocorrelation of power-of-two frames (`ops/ct_fused.py`)
+- the Viterbi pitch-path DP                 (`ops/viterbi.py`)
 
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 and launches the kernel (or raises) for tensors on the card. The package
 imports torch and never JAX or voxtpu.
 
-Entry point: `voxtpu_torch.pipeline.analyze(samples, config)`.
+Entry points (`voxtpu_torch.pipeline`): `analyze`, `analyze_batch`,
+`analyze_batch_padded`, `analyze_long`, `StreamAnalyzer`. They run on the
+card unless handed a tensor elsewhere or device="cpu"
+(`voxtpu_torch.device`).
 """
 
 __all__ = ["pipeline"]

@@ -1,0 +1,38 @@
+"""Where the entry points run: on the card unless the caller says otherwise.
+
+`as_input` is the one rule every entry point (`pipeline.analyze*`,
+`StreamAnalyzer`, `viterbi.pitch_track`) applies to its input:
+- a `torch.Tensor` keeps its device (a CPU tensor is the caller's choice),
+  or moves to `device` when one is given;
+- anything else (NumPy arrays, lists) goes to `device`, which defaults to
+  the CUDA card. Without one that raises: nothing falls back to the CPU.
+  `device="cpu"` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["NoCudaDevice", "as_input"]
+
+
+class NoCudaDevice(RuntimeError):
+    """An entry point was asked to run on the card and there is none."""
+
+
+def _resolve(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise NoCudaDevice(
+            "no CUDA device: voxtpu_torch runs on the card by default; pass device='cpu' "
+            "(or a CPU tensor) to run on the CPU"
+        )
+    return dev
+
+
+def as_input(x, device=None) -> torch.Tensor:
+    """`x` as a tensor on the device it runs on (see the module docstring)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(_resolve(device))
+    return torch.as_tensor(np.asarray(x), device=_resolve(device))

@@ -28,6 +28,7 @@ __all__ = [
     "FEMALE_FORMANT_ESTIMATES",
     "estimate_formants_step",
     "formant_tracker",
+    "formant_tracker_batched",
     "formant_candidates",
     "find_formants",
     "resample_linear",
@@ -148,6 +149,21 @@ def formant_tracker(
     estimates (FormantExtractor, spectrum.rs:336-369): the per-frame
     estimate snapshots, (F, L) x 2. Kernel D on the card."""
     return formant_scan(res_freq, res_bw, est_freq, est_bw)
+
+
+def formant_tracker_batched(
+    res_freq: torch.Tensor, res_bw: torch.Tensor, est_freq: torch.Tensor, est_bw: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Track a batch of recordings: res_* (files, F, R) -> (files, F, L).
+    Each recording's carry starts from the seed estimates (spectrum.rs:
+    336-341). The files fold into the frame axis and kernel D resets the
+    carry every F frames, so the whole batch is one launch."""
+    files, F, R = res_freq.shape
+    freqs, bws = formant_scan(
+        res_freq.reshape(files * F, R), res_bw.reshape(files * F, R), est_freq, est_bw, file_len=F,
+    )
+    L = freqs.shape[-1]
+    return freqs.reshape(files, F, L), bws.reshape(files, F, L)
 
 
 def resample_linear(x: torch.Tensor, ratio: float, out_len: int) -> torch.Tensor:

@@ -1,0 +1,85 @@
+"""Kernel E: the half power spectrum and the autocorrelation lags of
+power-of-two frames in one pass (csrc/ct_fused.cu; replaces
+voxtpu/ops/ct_fused_pallas.py's `ct_fused_power_ac`).
+
+`ct_fused_power_ac_plain` is the PyTorch version: rfft to 2n points, power,
+irfft. `ct_fused_power_ac` runs it for CPU tensors and launches the kernel,
+one thread block per frame, for CUDA tensors. `ct_fused_supported` is the
+shape gate: which shapes the kernel takes follows from (n, nfft, dtype)
+alone, never from a failed launch.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from voxtpu_torch.ops import kernels
+
+__all__ = ["SMEM_LIMIT", "ct_fused_smem_bytes", "ct_fused_supported", "ct_fused_power_ac_plain",
+           "ct_fused_power_ac"]
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB)
+
+
+def ct_fused_smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: the frame zero-padded to 2n
+    complex values, real and imaginary parts apart (csrc/ct_fused.cu)."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    return 4 * int(n) * itemsize
+
+
+def ct_fused_supported(n: int, nfft: int, dtype: torch.dtype) -> bool:
+    """The kernel takes nfft == 2n, n a power of two >= 128, float32 or
+    float64, while a block's shared memory fits: n <= 8192 in float32,
+    n <= 4096 in float64."""
+    n, nfft = int(n), int(nfft)
+    return (
+        dtype in (torch.float32, torch.float64)
+        and nfft == 2 * n
+        and n >= 128
+        and n & (n - 1) == 0
+        and ct_fused_smem_bytes(n, dtype) <= SMEM_LIMIT
+    )
+
+
+def ct_fused_power_ac_plain(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n) frames -> (half (B, n//2+1), ac (B, n)): the n-point rfft power
+    bins, which are the even bins of the nfft-point ones, and the first n
+    lags of irfft(|rfft(x, nfft)|^2)."""
+    n = x.shape[-1]
+    spec = torch.fft.rfft(x, n=nfft, dim=-1)
+    power = (spec.real.square() + spec.imag.square()).to(x.dtype)
+    ac = torch.fft.irfft(power, n=nfft, dim=-1)[..., :n].to(x.dtype)
+    return power[..., ::2].contiguous(), ac.contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _twiddles(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(2, n): cos and -sin of 2 pi k / 2n, k < n, built in float64."""
+    ang = 2.0 * np.pi * np.arange(n) / (2 * n)
+    return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)]), dtype=dtype, device=device)
+
+
+def ct_fused_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ct_fused_power_ac_plain` for CPU tensors; on the card, csrc/ct_fused.cu
+    over (B, n) frames. Both raise for a shape that fails
+    `ct_fused_supported`."""
+    if not ct_fused_supported(x.shape[-1], nfft, x.dtype):
+        raise ValueError(f"ct_fused_power_ac: unsupported shape {tuple(x.shape)}, nfft={nfft}, {x.dtype}")
+    if kernels.on_cpu(x):
+        return ct_fused_power_ac_plain(x, nfft)
+    if x.dim() != 2:
+        raise ValueError(f"ct_fused_power_ac: x (B, n) on the card, got {tuple(x.shape)}")
+    B, n = x.shape
+    x = x.contiguous()
+    half = torch.empty((B, n // 2 + 1), dtype=x.dtype, device=x.device)
+    ac = torch.empty((B, n), dtype=x.dtype, device=x.device)
+    kernels.launch("vt_ct_fused", x.dtype, x, _twiddles(n, x.dtype, x.device), half, ac, B, n)
+    ct_fused_power_ac.launches += 1
+    return half, ac
+
+
+ct_fused_power_ac.launches = 0

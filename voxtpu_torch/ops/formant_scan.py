@@ -34,22 +34,24 @@ def formant_scan_plain(
     """Track res_* (F, R) from the seed est_* (L,): returns the per-frame
     estimate snapshots (F, L) x 2. With file_len, F holds F / file_len
     recordings back to back and the carry resets to the seed at each one's
-    first frame."""
+    first frame; the loop runs over file_len frames with the recordings as
+    the step's batch axis."""
     from voxtpu_torch.formants import estimate_formants_step
 
-    F = res_freq.shape[0]
+    F, R = res_freq.shape
     file_len = _check_file_len(F, file_len)
+    files = F // file_len
     L = est_freq.shape[-1]
-    out_f = torch.empty((F, L), dtype=res_freq.dtype, device=res_freq.device)
+    rf = res_freq.reshape(files, file_len, R)
+    rb = res_bw.reshape(files, file_len, R)
+    out_f = torch.empty((files, file_len, L), dtype=res_freq.dtype, device=res_freq.device)
     out_b = torch.empty_like(out_f)
-    ef, eb = est_freq, est_bw
-    for t in range(F):
-        if t % file_len == 0:
-            ef, eb = est_freq, est_bw
-        ef, eb = estimate_formants_step(ef, eb, res_freq[t], res_bw[t])
-        out_f[t] = ef
-        out_b[t] = eb
-    return out_f, out_b
+    ef, eb = est_freq.expand(files, L), est_bw.expand(files, L)
+    for t in range(file_len):
+        ef, eb = estimate_formants_step(ef, eb, rf[:, t], rb[:, t])
+        out_f[:, t] = ef
+        out_b[:, t] = eb
+    return out_f.reshape(F, L), out_b.reshape(F, L)
 
 
 def formant_scan(

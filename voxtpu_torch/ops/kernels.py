@@ -49,6 +49,8 @@ _SIGNATURES = {
     "vt_burg": "pppiii",
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppiiii",
+    "vt_ct_fused": "ppppii",
+    "vt_viterbi": "pppppiiidd",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

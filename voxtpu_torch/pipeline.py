@@ -3,10 +3,25 @@
 Port of voxtpu.pipeline's one-recording path. `analyze(samples, config)`
 frames a 1-D signal and `analyze_frames` computes every feature over the
 (F, n) frames: pitch and MFCC on Hann-windowed frames, formants on the raw
-frames (find_formants windows internally), RMS on the raw frames. Work runs
-on the device of the input tensor, in its dtype: float64 is the parity mode,
-float32 the working type on the card. Four CUDA kernels carry the card path
-(refine, burg, find_roots, formant_scan; see voxtpu_torch.ops).
+frames (find_formants windows internally), RMS on the raw frames, and with
+`PitchConfig.viterbi` the path search over the pitch candidates. Work runs
+in the input's dtype: float64 is the parity mode, float32 the working type
+on the card. Six CUDA kernels carry the card path (ct_fused for power-of-two
+frames, refine, burg, find_roots, formant_scan, and viterbi; see
+voxtpu_torch.ops).
+
+Entry points, each with a `device` argument (voxtpu_torch.device.as_input:
+a tensor keeps its device, anything else goes to the card unless
+device="cpu"):
+- `analyze`: one recording;
+- `analyze_batch`: (B, F, n) frames of B recordings, the frame-parallel
+  stages as one batch, one kernel-D and one kernel-F launch for all;
+- `analyze_batch_padded`: (B, S) zero-padded signals with their lengths,
+  the corpus-block entry point;
+- `analyze_long`: a Python loop over chunks of frames that threads the
+  formant carry, with the path search once at the end;
+- `StreamAnalyzer` / `analyze_stream` / `finalize_viterbi`: push-style
+  streaming with the same carry, and the path search at end of stream.
 
 `config_from_jax` reads a `voxtpu.pipeline.AnalysisConfig` (by attribute,
 without importing voxtpu) into this module's dataclasses.
@@ -14,6 +29,7 @@ without importing voxtpu) into this module's dataclasses.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -21,15 +37,22 @@ import numpy as np
 import torch
 
 from voxtpu_torch import errors, waves
-from voxtpu_torch.formants import MALE_FORMANT_ESTIMATES, find_formants, formant_candidates
-from voxtpu_torch.frame import frame_signal
+from voxtpu_torch.autocorr import power_and_autocorrelate
+from voxtpu_torch.device import as_input
+from voxtpu_torch.formants import (
+    MALE_FORMANT_ESTIMATES, find_formants, formant_candidates, formant_tracker_batched,
+)
+from voxtpu_torch.frame import frame_signal, num_frames
 from voxtpu_torch.mfcc import mfcc
 from voxtpu_torch.pitch import pitch_frames
+from voxtpu_torch.viterbi import PathConfig, pitch_path
 from voxtpu_torch.windows import hann
 
 __all__ = [
     "PitchConfig", "FormantConfig", "MfccConfig", "AnalysisConfig", "CLI_DEFAULT_44K",
-    "config_from_jax", "f0_outputs", "f0_outputs_host", "analyze_frames", "analyze",
+    "BENCH_44K", "FLAGSHIP_44K", "config_from_jax", "f0_outputs", "f0_outputs_host",
+    "analyze_frames", "analyze", "analyze_batch", "analyze_batch_padded", "analyze_long",
+    "StreamAnalyzer", "analyze_stream", "finalize_viterbi",
 ]
 
 
@@ -40,7 +63,8 @@ class PitchConfig:
     fmin: float = 60.0
     fmax: float = 600.0
     max_candidates: int = 32
-    #: the Viterbi path search is not ported yet; True raises
+    #: run the Viterbi path search (voxtpu_torch.viterbi) and report its
+    #: track as f0 instead of the strongest candidate
     viterbi: bool = False
     #: "sinc" (Brent over windowed sinc, periodic.rs:440-450) or "parabolic"
     refine: str = "sinc"
@@ -89,6 +113,29 @@ CLI_DEFAULT_44K = AnalysisConfig(
     pitch=PitchConfig(threshold=0.2, fmin=60.0, fmax=600.0, refine="sinc", refine_depth=None),
     formant=FormantConfig(n_coeffs=13),
     mfcc=MfccConfig(num_coeffs=13),
+)
+
+#: bench.py's configuration (bench.py:45-56): 4096-sample frames (the
+#: reference bench frame), hop 1024 at 44.1 kHz, MFCC over 100-8000 Hz. Its
+#: power-of-two frames take kernel E.
+BENCH_44K = AnalysisConfig(
+    sample_rate=44100.0,
+    frame_len=4096,
+    hop=1024,
+    pitch=PitchConfig(threshold=0.2, fmin=60.0, fmax=600.0, max_candidates=32),
+    formant=FormantConfig(n_coeffs=13),
+    mfcc=MfccConfig(num_coeffs=13, freq_lo=100.0, freq_hi=8000.0),
+)
+
+#: The flagship configuration (`__graft_entry__.FLAGSHIP`): 2048/512 at
+#: 44.1 kHz, otherwise as BENCH_44K.
+FLAGSHIP_44K = AnalysisConfig(
+    sample_rate=44100.0,
+    frame_len=2048,
+    hop=512,
+    pitch=PitchConfig(threshold=0.2, fmin=60.0, fmax=600.0, max_candidates=32),
+    formant=FormantConfig(n_coeffs=13),
+    mfcc=MfccConfig(num_coeffs=13, freq_lo=100.0, freq_hi=8000.0),
 )
 
 
@@ -157,8 +204,6 @@ def analyze_frames(
     resonance buffers ("resonance_freqs"/"resonance_bws") instead of
     "formant_freqs"/"formant_bws".
     """
-    if config.pitch.enabled and config.pitch.viterbi:
-        raise NotImplementedError("PitchConfig.viterbi is not yet ported to voxtpu_torch")
     sr = config.sample_rate
     n = frames.shape[-1]
     dt, dev = frames.dtype, frames.device
@@ -173,7 +218,8 @@ def analyze_frames(
     ).to(torch.int32)
 
     # Power-of-two frames with pitch and MFCC on (and no preemphasis) share
-    # one FFT: the 2n-point power spectrum's even bins are the n-point ones.
+    # one transform, kernel E on the card: the 2n-point power spectrum's even
+    # bins are the n-point ones.
     share_fft = (
         config.pitch.enabled
         and config.mfcc.enabled
@@ -182,8 +228,6 @@ def analyze_frames(
     )
     shared_ac = shared_half_power = None
     if share_fft:
-        from voxtpu_torch.autocorr import power_and_autocorrelate
-
         shared_half_power, shared_ac = power_and_autocorrelate(windowed, n)
 
     if config.pitch.enabled:
@@ -196,7 +240,13 @@ def analyze_frames(
         out["pitch_candidates_freq"] = freq
         out["pitch_candidates_strength"] = strength
         out["pitch_candidates_valid"] = valid
-        out.update(f0_outputs(freq[..., 0], strength[..., 0]))
+        if p.viterbi:
+            # Praat's silence-aware unvoiced strength takes the frame's local
+            # peak over the recording's peak (the reference pitch()'s unused
+            # local_peak/global_peak, periodic.rs:357).
+            out.update(_path_outputs(out, config, _local_peak(frames)))
+        else:
+            out.update(f0_outputs(freq[..., 0], strength[..., 0]))
 
     if config.formant.enabled:
         f = config.formant
@@ -231,7 +281,195 @@ def analyze_frames(
     return out
 
 
-def analyze(samples, config: AnalysisConfig) -> dict:
-    """Frame a 1-D signal (tensor or array; a tensor keeps its device and
-    dtype) and analyze it."""
-    return analyze_frames(frame_signal(samples, config.frame_len, config.hop), config)
+def _local_peak(frames: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(frames), dim=-1)
+
+
+def _intensity(local_peak: torch.Tensor) -> torch.Tensor:
+    """Each frame's peak over its recording's peak (the last axis)."""
+    return local_peak / torch.clamp(torch.amax(local_peak, dim=-1, keepdim=True), min=1e-30)
+
+
+def _without_viterbi(config: AnalysisConfig) -> AnalysisConfig:
+    return dataclasses.replace(config, pitch=dataclasses.replace(config.pitch, viterbi=False))
+
+
+def _path_outputs(out: dict, config: AnalysisConfig, local_peak: torch.Tensor) -> dict:
+    """f0/f0_strength/hnr_db along the Viterbi path through out's candidates."""
+    return f0_outputs(*pitch_path(
+        out["pitch_candidates_freq"], out["pitch_candidates_strength"], out["pitch_candidates_valid"],
+        PathConfig(ceiling=config.pitch.fmax), local_intensity=_intensity(local_peak),
+    ))
+
+
+def analyze(samples, config: AnalysisConfig, device=None) -> dict:
+    """Frame a 1-D signal and analyze it. Runs on the card unless `samples`
+    is a tensor elsewhere or device="cpu" (voxtpu_torch.device.as_input)."""
+    x = as_input(samples, device)
+    return analyze_frames(frame_signal(x, config.frame_len, config.hop), config)
+
+
+def analyze_batch(frames, config: AnalysisConfig, device=None) -> dict:
+    """Analyze B same-shape recordings, (B, F, n) frames.
+
+    The frame-parallel stages run over the B * F frames as one batch; the
+    formant tracker (kernel D, its carry reset per recording) and the path
+    search (kernel F, each recording with its own intensity peak) run once
+    each for all B. Row b equals `analyze_frames(frames[b], config)`.
+    All-zero frames are exact padding: they give no pitch candidates and
+    an all-None formant trajectory, never NaNs.
+    """
+    frames = as_input(frames, device)
+    B, F, n = frames.shape
+    do_formants = config.formant.enabled
+    do_viterbi = config.pitch.enabled and config.pitch.viterbi
+    inner = _without_viterbi(config) if do_viterbi else config
+
+    out = analyze_frames(frames.reshape(-1, n), inner, return_formant_candidates=do_formants)
+    out = {k: v.reshape((B, F) + v.shape[1:]) for k, v in out.items()}
+    if do_formants:
+        est_f = torch.as_tensor(config.formant.estimates, dtype=frames.dtype, device=frames.device)
+        est_b = torch.full_like(est_f, config.formant.estimate_bandwidth)
+        out["formant_freqs"], out["formant_bws"] = formant_tracker_batched(
+            out.pop("resonance_freqs"), out.pop("resonance_bws"), est_f, est_b,
+        )
+    if do_viterbi:
+        out.update(_path_outputs(out, config, _local_peak(frames)))
+    return out
+
+
+def analyze_batch_padded(samples, lengths, config: AnalysisConfig, device=None) -> dict:
+    """`analyze_batch` over a (B, S) block of zero-padded signals with their
+    true sample counts `lengths` (B,): the corpus-block entry point.
+
+    Frames that reach past a recording's end hold its tail and pad zeros,
+    not all zeros, so they would give pitch candidates and move that
+    recording's path: they are zeroed. Row b, trimmed to the recording's
+    frame count, equals `analyze` of it.
+    """
+    samples = as_input(samples, device)
+    n, hop = config.frame_len, config.hop
+    frames = frame_signal(samples, n, hop)  # (B, F, n)
+    F = frames.shape[1]
+    lengths = torch.as_tensor(lengths, device=frames.device).long()
+    nf = torch.clamp((lengths - n) // hop + 1, min=0)
+    mask = torch.arange(F, device=frames.device)[None, :] < nf[:, None]
+    return analyze_batch(frames * mask[:, :, None].to(frames.dtype), config)
+
+
+def analyze_long(samples, config: AnalysisConfig, chunk_frames: int = 4096, device=None) -> dict:
+    """Chunked analysis of a long recording, equal to a one-shot `analyze`.
+
+    A Python loop analyses `chunk_frames` frames at a time (the last chunk
+    holds the rest): the McCandless carry threads from each chunk's last
+    frame into the next chunk's starting estimates, so the tracked
+    trajectory is the serial one. With `config.pitch.viterbi` the path search
+    (and its whole-recording intensity peak) runs once at the end over all
+    frames' candidates. Device memory for the frames is one chunk's.
+    """
+    x = as_input(samples, device)
+    n, hop = config.frame_len, config.hop
+    F = num_frames(x.shape[-1], n, hop)
+    if F <= chunk_frames:
+        return analyze(x, config)
+    do_viterbi = config.pitch.enabled and config.pitch.viterbi
+    inner = _without_viterbi(config) if do_viterbi else config
+
+    est_f = torch.as_tensor(config.formant.estimates, dtype=x.dtype, device=x.device)
+    est = (est_f, torch.full_like(est_f, config.formant.estimate_bandwidth))
+    outs, peaks = [], []
+    for start in range(0, F, chunk_frames):
+        nf = min(chunk_frames, F - start)
+        frames = frame_signal(x[start * hop : (start + nf - 1) * hop + n], n, hop)
+        out = analyze_frames(frames, inner, formant_estimates=est)
+        if config.formant.enabled:
+            est = (out["formant_freqs"][-1], out["formant_bws"][-1])
+        outs.append(out)
+        peaks.append(_local_peak(frames))
+    full = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    if do_viterbi:
+        full.update(_path_outputs(full, config, torch.cat(peaks)))
+    return full
+
+
+class StreamAnalyzer:
+    """Push-style streaming analysis with an exact formant carry.
+
+    `feed(block)` takes a 1-D sample block of any size and returns the
+    completed `chunk_frames`-frame feature chunks it unlocked (maybe none);
+    `finish()` flushes the last partial chunk. Memory is one chunk of frames
+    plus a `frame_len - hop` sample tail. The concatenated chunks equal the
+    one-shot `analyze` of the concatenated input. Each chunk carries an
+    internal `_stream_local_peak` key that `finalize_viterbi` consumes.
+
+    `config.pitch.viterbi` is rejected: the path search needs the whole
+    recording (stream with viterbi=False and call `finalize_viterbi` on the
+    chunks). The samples live on `device` (voxtpu_torch.device.as_input):
+    with device=None the first block decides, a tensor keeping its device
+    and anything else going to the card.
+    """
+
+    def __init__(self, config: AnalysisConfig, chunk_frames: int = 512, device=None):
+        if config.pitch.enabled and config.pitch.viterbi:
+            raise ValueError(
+                "streaming analysis cannot run Viterbi (whole-recording DP); "
+                "stream with viterbi=False and call finalize_viterbi(chunks, "
+                "config) on the collected chunks at end of stream"
+            )
+        self.config = config
+        self.chunk_frames = int(chunk_frames)
+        self._hop, self._n = config.hop, config.frame_len
+        self._chunk_samples = (self.chunk_frames - 1) * self._hop + self._n
+        self._device = device
+        self._est = None
+        self._buf = None
+        self.frames_done = 0
+
+    def _emit_chunk(self, nf: int) -> dict:
+        frames = frame_signal(self._buf[: (nf - 1) * self._hop + self._n], self._n, self._hop)
+        out = analyze_frames(frames, self.config, formant_estimates=self._est)
+        if self.config.formant.enabled:
+            self._est = (out["formant_freqs"][-1], out["formant_bws"][-1])
+        out["_stream_local_peak"] = _local_peak(frames)
+        self._buf = self._buf[nf * self._hop :]  # keep the overlap tail
+        self.frames_done += nf
+        return out
+
+    @property
+    def buffered_samples(self) -> int:
+        return 0 if self._buf is None else self._buf.shape[0]
+
+    def feed(self, block) -> list:
+        """Append a sample block; return the completed chunks it unlocked."""
+        block = as_input(block, self._device).reshape(-1)
+        self._device = block.device
+        if block.numel():
+            self._buf = block if self._buf is None else torch.cat([self._buf, block])
+        chunks = []
+        while self._buf is not None and self._buf.shape[0] >= self._chunk_samples:
+            chunks.append(self._emit_chunk(self.chunk_frames))
+        return chunks
+
+    def finish(self) -> list:
+        """Flush the final partial chunk (0 or 1 chunks)."""
+        nf = 0 if self._buf is None else min(num_frames(self._buf.shape[0], self._n, self._hop), self.chunk_frames)
+        return [self._emit_chunk(nf)] if nf else []
+
+
+def analyze_stream(blocks, config: AnalysisConfig, chunk_frames: int = 512, device=None):
+    """Streaming analysis: a generator of per-chunk feature dicts over an
+    iterable of sample blocks (a thin pull-style wrapper of StreamAnalyzer)."""
+    analyzer = StreamAnalyzer(config, chunk_frames, device=device)
+    for blk in blocks:
+        yield from analyzer.feed(blk)
+    yield from analyzer.finish()
+
+
+def finalize_viterbi(chunks, config: AnalysisConfig) -> dict:
+    """End-of-stream Viterbi: concatenate `analyze_stream` chunks and run the
+    whole-recording path search (DP + intensity peak), giving the f0 /
+    f0_strength / hnr_db of one-shot `analyze` with viterbi=True."""
+    chunks = list(chunks)
+    full = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+    full.update(_path_outputs(full, config, full.pop("_stream_local_peak")))
+    return full
