@@ -10,41 +10,50 @@ It fails (nonzero exit, no result lines) without a CUDA device or outside a
 checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. build of the six kernels from voxtpu_torch/csrc with nvcc, with the
+2. build of the seven kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report;
-3. kernels A-D (refine, burg, find_roots, formant_scan) against their plain
-   PyTorch versions on the card, at the shapes of the CLI path
-   (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels recording:
-   35,689 frames of 2205 samples), in float64 and float32;
+3. kernels G (pitch_pre) and A-D (refine, burg, find_roots, formant_scan)
+   against their plain PyTorch versions on the card, at the shapes of the
+   CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels
+   recording: 35,689 frames of 2205 samples), in float64 and float32; G
+   bit-exact, a row with a NaN lag included;
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
-   launch count reset just before and read just after; A-D must have run,
-   outputs must be finite (hnr_db is -inf exactly where f0 == 0) and every
-   frame's status 0;
+   launch count reset just before and read just after; G and A-D must have
+   run, outputs must be finite (hnr_db is -inf exactly where f0 == 0) and
+   every frame's status 0;
 5. parity: float64 on the card through the kernels against the plain CPU
    path over the first 2 s, and float32 against float64 on the card over
    the whole signal within the fast-mode budgets, where a frame over a
    budget must be over it in the plain path too (see `check_budgets`);
 6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024) with the
    Viterbi path search, over the same 126 tiles (15,369 frames). The path
-   in float32 with all six launch counts above 0; all six kernels (A-D,
-   E ct_fused, F viterbi) against their plain versions at its shapes in
+   in float32 with all seven launch counts above 0; all seven kernels (A-D,
+   E ct_fused, F viterbi, G) against their plain versions at its shapes in
    float64 and float32; float64 card-vs-CPU parity over the first 2 s;
    float32 against float64 within the budgets by phase 5's rule, the plain
    path over the whole signal built from one period of it
    (`plain_periodic`); and `analyze_long` against `analyze` in float64;
 7. the corpus block: `analyze_batch_padded` over 16 recordings (8 tiles
-   each, random gain and trimmed tail), with D and F launched once for the
-   block, each row in float64 equal to `analyze` of its recording, and all
-   six kernels against their plain versions at the block's shapes (kernel
-   D with one recording's frame count as file_len);
+   each, random gain and trimmed tail), with all seven kernels launched
+   and D, F and G once for the block, each row in float64 equal to
+   `analyze` of its recording, and all seven kernels against their plain
+   versions at the block's shapes (kernel D with one recording's frame
+   count as file_len);
 8. the flagship path: `analyze` at FLAGSHIP_44K (2048/512) with the
-   Viterbi path search over the 126 tiles, all six launch counts above 0,
-   healthy outputs, all six kernels against their plain versions at its
+   Viterbi path search over the 126 tiles, all seven launch counts above 0,
+   healthy outputs, all seven kernels against their plain versions at its
    shapes, float64 card-vs-CPU parity over the first 2 s; then kernel E
    against its plain version at every frame length its gate admits;
-9. times, float32: each path end to end, one run of the CLI and the bench
-   path under torch.profiler, and each kernel against its plain version,
-   with its bound and, for E, the cuFFT library time.
+9. the command line, float32, from IEEE-float WAVs of the 126 tiles and of
+   the 16 corpus recordings: `python3 -m voxtpu_torch analyze` as a
+   subprocess against in-process `analyze`, and `cli.main(["corpus", ...,
+   "--batch-files", "16"])` in process (counted launches; its manifest, and
+   each file's features against its row of `analyze_batch_padded` over the
+   block the command builds), with the command's wall time, reads included;
+10. times, float32: each path end to end, one run of each path under
+   torch.profiler (the bench path's must hold one launch of G),
+   and each kernel against its plain version, with its bound and, for E,
+   the cuFFT library time; G also at the CLI path's shapes.
 
 Each phase prints the seconds it took.
 
@@ -55,12 +64,16 @@ error, times and bound; the last is the device line
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +111,7 @@ KERNELS = {
     "formant_scan": ("voxtpu_torch/csrc/formant_scan.cu", "voxtpu/ops/formant_scan_pallas.py:249", "cli"),
     "ct_fused": ("voxtpu_torch/csrc/ct_fused.cu", "voxtpu/ops/ct_fused_pallas.py:187", "bench"),
     "viterbi": ("voxtpu_torch/csrc/viterbi.cu", "voxtpu/ops/viterbi_pallas.py:175", "bench"),
+    "pitch_pre": ("voxtpu_torch/csrc/pitch_pre.cu", "voxtpu/ops/pitch_pre_pallas.py:110", "bench"),
 }
 
 
@@ -174,6 +188,21 @@ def event_ms(fn, runs: int = 5) -> float:
     return start.elapsed_time(end) / runs
 
 
+def pitch_pre_inputs(frames, cfg):
+    """Kernel G's arguments at (F, n) raw frames: the quirked lags of the
+    Hann-windowed frames (through E or cuFFT, as the path computes them),
+    the lag window, bi and the band. Returns (windowed frames, arguments)."""
+    import torch
+
+    from voxtpu_torch.autocorr import autocorrelate
+    from voxtpu_torch.windows import hann, hanning_lag
+
+    n = frames.shape[-1]
+    windowed = frames * torch.as_tensor(hann(n), dtype=frames.dtype, device=frames.device)
+    hl = torch.as_tensor(hanning_lag(n), dtype=frames.dtype, device=frames.device)
+    return windowed, (autocorrelate(windowed, n), hl, n // 2, cfg.sample_rate, cfg.pitch.fmin, cfg.pitch.fmax)
+
+
 def kernel_inputs(frames, cfg):
     """Each kernel's arguments at the slice's shapes, computed by the port's
     own stages from (F, n) raw frames."""
@@ -183,27 +212,49 @@ def kernel_inputs(frames, cfg):
     from voxtpu_torch.ops.burg import burg
     from voxtpu_torch.pitch import REFINE_SINC_DEPTH, lag_candidates
     from voxtpu_torch.sinc import _max_effective_depth
-    from voxtpu_torch.windows import hann
 
-    n = frames.shape[-1]
-    window = torch.as_tensor(hann(n), dtype=frames.dtype, device=frames.device)
     p, f = cfg.pitch, cfg.formant
-    lc = lag_candidates(frames * window, cfg.sample_rate, p.fmin, p.fmax, p.max_candidates)
+    windowed, pre_args = pitch_pre_inputs(frames, cfg)
+    lc = lag_candidates(windowed, cfg.sample_rate, p.fmin, p.fmax, p.max_candidates, precomputed_ac=pre_args[0])
     T = _max_effective_depth(lc.offset, lc.nx, REFINE_SINC_DEPTH, lc.max_x + 1.0)
     refine_args = (lc.self_lag, lc.pos, lc.valid, lc.offset, REFINE_SINC_DEPTH, T)
-    burg_args = ((frames * window).contiguous(), f.n_coeffs)
+    burg_args = (windowed.contiguous(), f.n_coeffs)
     coeffs, _ = burg(*burg_args)
     poly_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
     roots_args = (poly_re, torch.zeros_like(poly_re))
     rfreq, rbw, _ = formant_candidates(frames, cfg.sample_rate, f.n_coeffs, polish=f.polish)
     est_f = torch.as_tensor(f.estimates, dtype=frames.dtype, device=frames.device)
     scan_args = (rfreq, rbw, est_f, torch.full_like(est_f, f.estimate_bandwidth))
-    return {"refine": refine_args, "burg": burg_args, "find_roots": roots_args, "formant_scan": scan_args}, lc.valid
+    return {"refine": refine_args, "burg": burg_args, "find_roots": roots_args, "formant_scan": scan_args,
+            "pitch_pre": pre_args}, lc.valid
+
+
+def check_pitch_pre(args, checks: Checks, tag: str) -> float:
+    """Kernel G against its plain version, bit for bit (csrc/pitch_pre.cu
+    repeats every operation in the same order and precision), on the
+    path's lags and on a copy of its first 64 rows where row 3 holds a NaN
+    lag, which must give an all-zero row. Returns the max abs error."""
+    import torch
+
+    from voxtpu_torch.ops import pitch_pre
+
+    ac, hl, bi, sr, fmin, fmax = args
+    nan_ac = ac[:64].clone()
+    nan_ac[3, 7] = float("nan")
+    err = 0.0
+    for case, a in (("", ac), (", NaN row", nan_ac)):
+        k = pitch_pre.pitch_pre(a, hl, bi, sr, fmin, fmax)
+        p = pitch_pre.pitch_pre_plain(a, hl, bi, sr, fmin, fmax)
+        for name, kv, pv in zip(("self_lag", "freq", "cand"), k, p):
+            checks.equal(f"pitch_pre {name} [{tag}{case}]", kv, pv)
+            err = max(err, float((kv.double() - pv.double()).abs().max()))
+    checks.true(f"pitch_pre NaN row all zero [{tag}]", not bool(k[0][3].any() or k[2][3].any()))
+    return err
 
 
 def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None = None) -> dict:
-    """Kernels A-D against their plain versions on the same inputs, for one
-    dtype, at the shapes of (F, n) frames. file_len: the frames are
+    """Kernels G and A-D against their plain versions on the same inputs,
+    for one dtype, at the shapes of (F, n) frames. file_len: the frames are
     F / file_len recordings of file_len frames each, as the corpus block
     hands them to kernel D. Returns {kernel: max_abs_err}."""
     import torch
@@ -214,7 +265,7 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     f64 = dt == torch.float64
     tag = f"{label}, {'f64' if f64 else 'f32'}"
     args, valid = kernel_inputs(frames, cfg)
-    errs = {}
+    errs = {"pitch_pre": check_pitch_pre(args["pitch_pre"], checks, tag)}
 
     xk, fk = refine.refine(*args["refine"])
     xp, fp = refine.refine_plain(*args["refine"])
@@ -287,25 +338,23 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
 
 
 def bench_kernel_inputs(frames, out, cfg):
-    """Kernel E's and F's arguments at a path's shapes: the Hann-windowed
-    frames as (F, n), and the DP inputs that `pitch_path` builds from the
-    path's own candidates and frame intensities, (F, C) for one recording
-    or (B, F, C) for a block of B."""
-    import torch
-
+    """Kernel E's, F's and G's arguments at a path's shapes: the
+    Hann-windowed frames as (F, n), the DP inputs that `pitch_path` builds
+    from the path's own candidates and frame intensities, (F, C) for one
+    recording or (B, F, C) for a block of B, and `pitch_pre_inputs`."""
     from voxtpu_torch.pipeline import _intensity, _local_peak
     from voxtpu_torch.viterbi import PathConfig, path_inputs
-    from voxtpu_torch.windows import hann
 
     n = frames.shape[-1]
-    windowed = (frames * torch.as_tensor(hann(n), dtype=frames.dtype, device=frames.device)).reshape(-1, n)
+    windowed, pre_args = pitch_pre_inputs(frames.reshape(-1, n), cfg)
     pc = PathConfig(ceiling=cfg.pitch.fmax)
     local, fs, voiced = path_inputs(
         out["pitch_candidates_freq"], out["pitch_candidates_strength"], out["pitch_candidates_valid"],
         pc, local_intensity=_intensity(_local_peak(frames)),
     )
     return {"ct_fused": (windowed.contiguous(), 2 * n),
-            "viterbi": (local, fs, voiced, pc.octave_jump_cost, pc.voiced_unvoiced_cost)}
+            "viterbi": (local, fs, voiced, pc.octave_jump_cost, pc.voiced_unvoiced_cost),
+            "pitch_pre": pre_args}
 
 
 def check_ct_fused(x, nfft: int, checks: Checks, tag: str) -> float:
@@ -401,6 +450,19 @@ def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
     return (max(t_bytes, ops_s) * 1e3, "bytes" if t_bytes >= ops_s else "operations")
 
 
+def pitch_pre_bound(args) -> tuple[float, str]:
+    """Kernel G's bound at its arguments: it reads the (B, n) lags and the
+    (n,) table once and writes (B, 2n) + (B, bi) values and (B, bi) flags;
+    about 4 operations a lag for the max and the normalisation and 12 a lag
+    below bi for the maxima, the frequency and the band."""
+    ac, hl, bi = args[:3]
+    B, n = ac.shape
+    isz = ac.element_size()
+    nbytes = B * n * isz + n * isz + B * (2 * n + bi) * isz + B * bi
+    ops = B * (4 * n + 12 * bi)
+    return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
 def kernel_bounds(cli: dict, bench: dict) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
@@ -461,6 +523,7 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
         "formant_scan": bound(bytes_d, ops_d / F32_OPS_S),
         "ct_fused": bound(bytes_e, ops_e / F32_OPS_S),
         "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
+        "pitch_pre": pitch_pre_bound(bench["pitch_pre"]),
     }
 
 
@@ -626,12 +689,13 @@ def check_health(label: str, out: dict, checks: Checks) -> None:
           f"{float(out['f0'][voiced].median()):.2f} Hz, median F1 {float(out['formant_freqs'][..., 0].median()):.1f} Hz")
 
 
-def profile_path(label: str, fn, card: str) -> None:
+def profile_path(label: str, fn, card: str) -> dict:
     """One warm run of fn under torch.profiler. From the trace alone: the
     device's busy time (union of its activities' intervals), the traced span
     (first recorded op to last end) and so the idle share, and the
     activities with the most device time. The profiler's own host cost
-    lengthens the launch gaps, so the idle share here is an upper bound."""
+    lengthens the launch gaps, so the idle share here is an upper bound.
+    Returns {activity name: [count, device us]}."""
     import collections
 
     import torch
@@ -661,6 +725,24 @@ def profile_path(label: str, fn, card: str) -> None:
         by_name[e.name][1] += e.time_range.elapsed_us()
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:100]}")
+    return by_name
+
+
+def write_float_wav(path, x, sample_rate: float) -> None:
+    """A mono 32-bit IEEE-float WAV (format 3), which keeps values above 1."""
+    data = np.asarray(x, dtype="<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, int(sample_rate), int(sample_rate) * 4, 4, 32)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def npz_tensors(path) -> dict:
+    import torch
+
+    with np.load(path) as z:
+        return {k: torch.as_tensor(z[k]) for k in z.files}
 
 
 def main() -> None:
@@ -671,9 +753,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke.py runs on the card only")
     sys.path.insert(0, str(ROOT))
-    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.frame import frame_signal, num_frames
     from voxtpu_torch.io_wav import read_wav
-    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, refine, viterbi
+    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, pitch_pre, refine, viterbi
     from voxtpu_torch.pipeline import (
         BENCH_44K, CLI_DEFAULT_44K, FLAGSHIP_44K, analyze, analyze_batch_padded, analyze_long,
     )
@@ -681,7 +763,7 @@ def main() -> None:
     wrappers = {
         "refine": refine.refine, "burg": burg.burg, "find_roots": find_roots.find_roots,
         "formant_scan": formant_scan.formant_scan, "ct_fused": ct_fused.ct_fused_power_ac,
-        "viterbi": viterbi.viterbi_path,
+        "viterbi": viterbi.viterbi_path, "pitch_pre": pitch_pre.pitch_pre,
     }
     checks = Checks()
     t_start = t_phase = time.perf_counter()
@@ -748,7 +830,8 @@ def main() -> None:
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
     torch.cuda.synchronize()
     out32, cli_launches = run_counted("CLI path float32", lambda: analyze(sig32, cfg))
-    for name in ("refine", "burg", "find_roots", "formant_scan"):
+    # 2205-sample frames take cuFFT, not E, and the CLI default runs no path search (F).
+    for name in ("pitch_pre", "refine", "burg", "find_roots", "formant_scan"):
         checks.true(f"{name} launched on the CLI path", cli_launches[name] > 0, f"({cli_launches[name]})")
     shapes = {k: tuple(v.shape) for k, v in out32.items()}
     checks.true("output shapes", shapes["f0"] == (F,) and shapes["formant_freqs"] == (F, 4)
@@ -821,7 +904,9 @@ def main() -> None:
     print(f"corpus block: {CORPUS_FILES} recordings, {corpus_s:.1f} s, {sum(cframes)} frames")
     cout64, corpus_launches = run_counted(
         "corpus block float64", lambda: analyze_batch_padded(block64, lengths, bcfg))
-    for name in ("formant_scan", "viterbi"):
+    for name, count in corpus_launches.items():
+        checks.true(f"{name} launched for the block", count > 0, f"({count})")
+    for name in ("formant_scan", "viterbi", "pitch_pre"):
         checks.true(f"{name} launched once for the block", corpus_launches[name] == 1, f"({corpus_launches[name]})")
     for b, r in enumerate(recs):
         row = {k: v[b, : cframes[b]] for k, v in cout64.items()}
@@ -862,7 +947,84 @@ def main() -> None:
     check_ct_fused_gate(checks, dev)
     phase_took("phase 8, flagship path and kernel E's gate")
 
-    # --- 9. times (float32)
+    # --- 9. the command line, float32, from IEEE-float WAVs
+    from voxtpu_torch import cli
+
+    ccfg = cli.build_analysis_config(sr)
+    checks.true("cli.build_analysis_config(44100) == CLI_DEFAULT_44K", ccfg == cfg)
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_cli_") as tmpdir:
+        tmp = Path(tmpdir)
+        long_wav = tmp / "two_vowels_x126.wav"
+        write_float_wav(long_wav, signal, sr)
+        wav_dir = tmp / "corpus"
+        wav_dir.mkdir()
+        paths = [str(wav_dir / f"rec{b:02d}.wav") for b in range(CORPUS_FILES)]
+        for pth, r in zip(paths, recs):
+            write_float_wav(pth, r, sr)
+
+        # `analyze` as a user runs it: a new process on the card.
+        out_npz = tmp / "out.npz"
+        cmd = [sys.executable, "-m", "voxtpu_torch", "analyze", str(long_wav), "-o", str(out_npz),
+               "--bucket-frames", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        print(f"{' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s "
+              f"(process start, CUDA init and the analysis); stderr: {proc.stderr.strip()[-1500:]}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"python -m voxtpu_torch analyze failed with exit {proc.returncode}")
+        got = npz_tensors(out_npz)
+        checks.true("analyze npz keys", set(got) == set(out32), f"{sorted(got)}")
+        compare_slice("python -m voxtpu_torch analyze vs analyze", got, out32, sr, checks)
+
+        # `corpus --batch-files 16` in process, counted; then its reference:
+        # `analyze_batch_padded` over the block the command builds (files in
+        # the command's size order, the fine ladder's sample capacity).
+        def corpus(out_dir):
+            t = time.perf_counter()
+            rc = cli.main(["corpus", *paths, "-o", str(out_dir), "--batch-files", "16", "--no-resume"])
+            return rc, time.perf_counter() - t
+
+        (rc, corpus_wall), cli_corpus_launches = run_counted(
+            "corpus --batch-files 16 float32", lambda: corpus(tmp / "features"))
+        checks.true("corpus exit 0", rc == 0, f"({rc})")
+        for name in ("pitch_pre", "refine", "burg", "find_roots", "formant_scan"):
+            checks.true(f"{name} launched once for the corpus command's block", cli_corpus_launches[name] == 1,
+                        f"({cli_corpus_launches[name]})")
+        manifest = json.loads((tmp / "features" / "manifest.json").read_text())
+        nfr = [num_frames(len(r), ccfg.frame_len, ccfg.hop) for r in recs]
+        checks.true("corpus manifest: 16 files, status 0, frame counts",
+                    sorted(manifest) == sorted(paths)
+                    and all(manifest[pth]["status_nonzero"] == 0 and manifest[pth]["frames"] == nf
+                            for pth, nf in zip(paths, nfr)), f"{[manifest[pth]['frames'] for pth in paths]}")
+        order = sorted(range(CORPUS_FILES), key=lambda b: os.path.getsize(paths[b]))
+        Fmax = cli._bucket_target_fine(max(nfr), cli._resolve_bucket(argparse.Namespace(bucket_frames=None, f64=False)))
+        S = (Fmax - 1) * ccfg.hop + ccfg.frame_len
+        stacked = np.zeros((CORPUS_FILES, S), np.float32)
+        for i, b in enumerate(order):
+            stacked[i, : min(len(recs[b]), S)] = recs[b][:S]
+        ref = analyze_batch_padded(torch.as_tensor(stacked, device=dev),
+                                   [min(len(recs[b]), S) for b in order], ccfg)
+        for i, b in enumerate(order):
+            got = npz_tensors(tmp / "features" / f"rec{b:02d}.npz")
+            compare_slice(f"corpus file {b} vs its block row", got,
+                          {k: v[i, : nfr[b]] for k, v in ref.items()}, sr, checks)
+        del ref
+        rc2, corpus_warm = corpus(tmp / "features_again")
+        checks.true("corpus (second run) exit 0", rc2 == 0, f"({rc2})")
+        # The command's share spent reading: the same 16 reads through its
+        # reader, files cached as they were for the second run.
+        t = time.perf_counter()
+        for pth in paths:
+            cli._read(pth, np.float32)
+        corpus_reads = time.perf_counter() - t
+    for label, wall in (("first", corpus_wall), ("second", corpus_warm)):
+        print(f"corpus --batch-files 16, {label} run: {wall:.3f} s wall for {corpus_s:.1f} s of audio, reads "
+              f"and writes included = {corpus_s / wall:.1f} audio-s/s [{card}]")
+    print(f"corpus reads alone (cli._read of the 16 WAVs): {corpus_reads:.4f} s = "
+          f"{100 * corpus_reads / corpus_warm:.1f}% of the second run [{card}]")
+    phase_took("phase 9, the command line")
+
+    # --- 10. times (float32)
     e2e = {
         "cli": (sync_ms(lambda: analyze(sig32, cfg)), audio_s),
         "bench": (sync_ms(lambda: analyze(sig32, bcfg)), audio_s),
@@ -873,7 +1035,11 @@ def main() -> None:
         print(f"end to end, float32, {path} path: {ms:.2f} ms for {secs:.1f} s of audio = "
               f"{secs / (ms / 1e3):.1f} audio-s/s [{card}]")
     profile_path("CLI-path analyze", lambda: analyze(sig32, cfg), card)
-    profile_path("bench-path analyze (Viterbi on)", lambda: analyze(sig32, bcfg), card)
+    prof = profile_path("bench-path analyze (Viterbi on)", lambda: analyze(sig32, bcfg), card)
+    g_acts = sum(c for name, (c, _us) in prof.items() if "pitch_pre_kernel" in name)
+    checks.true("bench-path profile: one pitch_pre_kernel", g_acts == 1, f"({g_acts})")
+    profile_path("flagship-path analyze (Viterbi on)", lambda: analyze(sig32, fcfg), card)
+    profile_path("corpus block (Viterbi on)", lambda: analyze_batch_padded(block32, lengths, bcfg), card)
 
     args32, _ = kernel_inputs(frame_signal(sig32, cfg.frame_len, cfg.hop), cfg)
     bounds = kernel_bounds(args32, bench_args32)
@@ -899,6 +1065,8 @@ def main() -> None:
                      FB, cufft_power_ac),
         "viterbi": (lambda: viterbi.viterbi_path(lv, fv, vv, ojc, vuc),
                     lambda: viterbi.viterbi_path_plain(lv[:vprefix], fv[:vprefix], vv[:vprefix], ojc, vuc), vprefix, None),
+        "pitch_pre": (lambda: pitch_pre.pitch_pre(*bench_args32["pitch_pre"]),
+                      lambda: pitch_pre.pitch_pre_plain(*bench_args32["pitch_pre"]), FB, None),
     }
     rows = []
     for name, (kfn, pfn, plain_frames, lfn) in timing.items():
@@ -923,13 +1091,21 @@ def main() -> None:
             "max_abs_err_by_path": {p: {"f32": e[torch.float32][name], "f64": e[torch.float64][name]}
                                     for p, e in path_errs.items() if name in e[torch.float32]},
         })
+    # G at the CLI path's shapes too (35,689 frames of 2205).
+    g_cli = {"cli_ms": event_ms(lambda: pitch_pre.pitch_pre(*args32["pitch_pre"])),
+             "cli_plain_ms": event_ms(lambda: pitch_pre.pitch_pre_plain(*args32["pitch_pre"]), runs=3),
+             "cli_bound_ms": pitch_pre_bound(args32["pitch_pre"])[0], "cli_frames": F}
+    print(f"  pitch_pre at the CLI path's shapes: kernel {g_cli['cli_ms']:.3f} ms, plain "
+          f"{g_cli['cli_plain_ms']:.3f} ms, bound {g_cli['cli_bound_ms']:.4f} ms by bytes ({F} frames)")
+    next(r for r in rows if r["name"] == "pitch_pre").update(g_cli)
 
-    phase_took("phase 9, times")
+    phase_took("phase 10, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
     print(json.dumps({"e2e_ms": {k: v[0] for k, v in e2e.items()},
                       "audio_s_per_s": {k: v[1] / (v[0] / 1e3) for k, v in e2e.items()},
-                      "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF}, "card": card}))
+                      "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF},
+                      "corpus_command_s": {"first": corpus_wall, "second": corpus_warm}, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

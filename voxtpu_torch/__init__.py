@@ -1,9 +1,11 @@
 """voxtpu_torch: the PyTorch + CUDA port of voxtpu for one NVIDIA H100.
 
-Same modules and public names as `voxtpu`, in plain PyTorch around six
+Same modules and public names as `voxtpu`, in plain PyTorch around seven
 hand-written CUDA kernels (`voxtpu_torch/csrc/*.cu`, built on first use by
 `voxtpu_torch.ops.kernels`):
 
+- the pitch pre-stage: normalise, lag window, maxima, parabolic frequency,
+  band filter                               (`ops/pitch_pre.py`)
 - Brent + windowed-sinc pitch refinement  (`ops/refine.py`)
 - Burg LPC                                  (`ops/burg.py`)
 - Laguerre + deflation polynomial roots     (`ops/find_roots.py`)
@@ -18,7 +20,10 @@ imports torch and never JAX or voxtpu.
 Entry points (`voxtpu_torch.pipeline`): `analyze`, `analyze_batch`,
 `analyze_batch_padded`, `analyze_long`, `StreamAnalyzer`. They run on the
 card unless handed a tensor elsewhere or device="cpu"
-(`voxtpu_torch.device`).
+(`voxtpu_torch.device`). The command line, `python -m voxtpu_torch
+analyze|corpus` (`voxtpu_torch.cli`), runs on the card unless given
+`--device cpu`; `voxtpu_torch.compat` holds the reference-shaped shims and
+`voxtpu_torch.profiling` the timing helpers.
 """
 
 __all__ = ["pipeline"]

@@ -14,14 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["NoCudaDevice", "as_input"]
+__all__ = ["NoCudaDevice", "resolve_device", "as_input"]
 
 
 class NoCudaDevice(RuntimeError):
     """An entry point was asked to run on the card and there is none."""
 
 
-def _resolve(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on: `device`, or the card when
+    None. A CUDA device without a card raises `NoCudaDevice`."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise NoCudaDevice(
@@ -34,5 +36,5 @@ def _resolve(device) -> torch.device:
 def as_input(x, device=None) -> torch.Tensor:
     """`x` as a tensor on the device it runs on (see the module docstring)."""
     if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(_resolve(device))
-    return torch.as_tensor(np.asarray(x), device=_resolve(device))
+        return x if device is None else x.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

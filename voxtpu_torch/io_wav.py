@@ -13,8 +13,8 @@ WAVE_FORMAT_EXTENSIBLE (0xFFFE) with wValidBitsPerSample < container width
 and WAVE_FORMAT_IEEE_FLOAT (3). Both are supported.
 
 This is the pure-Python RIFF path of voxtpu.io_wav, copied so the port never
-imports voxtpu (whose package import pulls in JAX). The native C++ loader
-is not ported yet.
+imports voxtpu (whose package import pulls in JAX). voxtpu's native C++
+loader has no counterpart: this walker decodes with np.frombuffer.
 """
 
 from __future__ import annotations

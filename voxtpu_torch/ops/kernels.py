@@ -2,7 +2,8 @@
 
 Every `voxtpu_torch/csrc/*.cu` compiles with nvcc, for sm_90a, into ONE
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), loaded with ctypes. The library lands in
+takes seconds), loaded with ctypes: one nvcc process a source, all started
+together, then one link. The library lands in
 `build/voxtpu_torch/` at the root of the checkout, named by a hash of the
 sources and flags, so an edited source never loads a stale build. Nothing
 is built when this module is imported: the first kernel launch builds.
@@ -39,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "voxtpu_torch"
 # of the 44.1 kHz slice to another local maximum (measured on an H100).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Argument kinds of each exported launcher, before the trailing stream
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "vt_formant_scan": "ppppppiiii",
     "vt_ct_fused": "ppppii",
     "vt_viterbi": "pppppiiidd",
+    "vt_pitch_pre": "pppppiiiddd",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -86,11 +88,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvoxtpu_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or KernelBuildError
+    naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise KernelBuildError(f"nvcc failed (exit {p.returncode}):\n{' '.join(cmd)}\n{text}")
+    return "".join(outputs)
+
+
 def build() -> Path:
     """Compile every kernel into the shared library; returns its path.
 
-    The compiler's report (`-Xptxas -v`: registers, shared memory and
-    spills per kernel) is written beside the library as `<name>.log`.
+    Each source compiles in its own nvcc process, all at once, to an object
+    file next to the library; one more nvcc links them. The compiler's
+    report (`-Xptxas -v`: registers, shared memory and spills per kernel)
+    is written beside the library as `<name>.log`.
     """
     nvcc = find_nvcc()
     if nvcc is None:
@@ -100,15 +115,17 @@ def build() -> Path:
         )
     out = library_path()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in _sources()]
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, _sources())])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

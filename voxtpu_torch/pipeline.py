@@ -6,8 +6,8 @@ frames a 1-D signal and `analyze_frames` computes every feature over the
 frames (find_formants windows internally), RMS on the raw frames, and with
 `PitchConfig.viterbi` the path search over the pitch candidates. Work runs
 in the input's dtype: float64 is the parity mode, float32 the working type
-on the card. Six CUDA kernels carry the card path (ct_fused for power-of-two
-frames, refine, burg, find_roots, formant_scan, and viterbi; see
+on the card. Seven CUDA kernels carry the card path (ct_fused for power-of-two
+frames, pitch_pre, refine, burg, find_roots, formant_scan, and viterbi; see
 voxtpu_torch.ops).
 
 Entry points, each with a `device` argument (voxtpu_torch.device.as_input:
@@ -17,7 +17,8 @@ device="cpu"):
 - `analyze_batch`: (B, F, n) frames of B recordings, the frame-parallel
   stages as one batch, one kernel-D and one kernel-F launch for all;
 - `analyze_batch_padded`: (B, S) zero-padded signals with their lengths,
-  the corpus-block entry point;
+  the corpus-block entry point; `analyze_batch_padded_fetch` returns it as
+  NumPy arrays through one packed buffer and one device-to-host copy;
 - `analyze_long`: a Python loop over chunks of frames that threads the
   formant carry, with the path search once at the end;
 - `StreamAnalyzer` / `analyze_stream` / `finalize_viterbi`: push-style
@@ -53,6 +54,7 @@ __all__ = [
     "BENCH_44K", "FLAGSHIP_44K", "config_from_jax", "f0_outputs", "f0_outputs_host",
     "analyze_frames", "analyze", "analyze_batch", "analyze_batch_padded", "analyze_long",
     "StreamAnalyzer", "analyze_stream", "finalize_viterbi",
+    "analyze_batch_padded_fetch",
 ]
 
 
@@ -355,6 +357,56 @@ def analyze_batch_padded(samples, lengths, config: AnalysisConfig, device=None) 
     nf = torch.clamp((lengths - n) // hop + 1, min=0)
     mask = torch.arange(F, device=frames.device)[None, :] < nf[:, None]
     return analyze_batch(frames * mask[:, :, None].to(frames.dtype), config)
+
+
+def _analyze_batch_padded_packed(samples, lengths, config: AnalysisConfig, device=None):
+    """`analyze_batch_padded` with every feature packed frame-major into one
+    (B, F, W) tensor in the samples' dtype, keys in sorted order: one buffer
+    to copy to the host, whose rows past a block's true frame count can be
+    sliced off before the copy. float64 round-trips exactly. Returns the
+    buffer and its unpack manifest, the (key, shape, NumPy dtype) list of
+    what `analyze_batch_padded` returned."""
+    samples = as_input(samples, device)
+    out = analyze_batch_padded(samples, lengths, config)
+    B = samples.shape[0]
+    F = next(iter(out.values())).shape[1]
+    keys = sorted(out)
+    flat = torch.cat([out[k].reshape(B, F, -1).to(samples.dtype) for k in keys], dim=2)
+    return flat, [(k, tuple(out[k].shape), _NP_DTYPE[out[k].dtype]) for k in keys]
+
+
+def _unpack_frames(flat: np.ndarray, manifest) -> dict:
+    """Invert the frame-major (B, F, W) packing. flat may hold fewer frame
+    rows than the manifest's F (rows trimmed before the copy): shapes follow
+    flat."""
+    out = {}
+    B, F = flat.shape[0], flat.shape[1]
+    col = 0
+    for k, shape, dtype in manifest:
+        w = int(np.prod(shape[2:], dtype=np.int64)) if len(shape) > 2 else 1
+        v = flat[:, :, col : col + w].reshape((B, F) + shape[2:])
+        col += w
+        if dtype == np.bool_:
+            v = v != 0
+        elif np.issubdtype(dtype, np.integer):
+            v = np.rint(v).astype(dtype)
+        out[k] = v
+    return out
+
+
+def analyze_batch_padded_fetch(samples, lengths, config: AnalysisConfig, trim_to: int | None = None,
+                               device=None) -> dict:
+    """`analyze_batch_padded` as host NumPy arrays through one packed buffer
+    and one device-to-host copy. trim_to: copy only the first trim_to frame
+    rows (the block's true largest frame count, known on the host)."""
+    flat, manifest = _analyze_batch_padded_packed(samples, lengths, config, device=device)
+    if trim_to is not None and trim_to < flat.shape[1]:
+        flat = flat[:, :trim_to, :]
+    return _unpack_frames(flat.cpu().numpy(), manifest)
+
+
+_NP_DTYPE = {torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64),
+             torch.int32: np.dtype(np.int32), torch.bool: np.dtype(np.bool_)}
 
 
 def analyze_long(samples, config: AnalysisConfig, chunk_frames: int = 4096, device=None) -> dict:

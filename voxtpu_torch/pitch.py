@@ -4,7 +4,8 @@ Port of voxtpu.pitch (reference: `Pitched::pitch`, periodic.rs:377-456):
   1. quirk-exact FFT autocorrelation -> normalize by max -> divide by the
      analytic Hann lag window -> zero non-finite rows -> zero-pad to 2n;
   2. local maxima over the first floor(n/2) lags (3-point compare);
-  3. parabolic frequency per maximum, band filter;
+  3. parabolic frequency per maximum, band filter (1-3 after the
+     autocorrelation: kernel G, voxtpu_torch.ops.pitch_pre);
   4. the first `max_candidates` band-passed maxima in lag order;
   5. Brent over the depth-1200 windowed sinc (kernel A, voxtpu_torch.ops.
      refine, through sinc.improve_extremum_sinc); the reference's dead
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from voxtpu_torch.autocorr import autocorrelate
+from voxtpu_torch.ops.pitch_pre import pitch_pre
 from voxtpu_torch.ops.refine import refine as refine_op
 from voxtpu_torch.sinc import _max_effective_depth, improve_extremum_sinc
 from voxtpu_torch.windows import hanning_lag
@@ -41,7 +43,7 @@ class LagCandidates:
     """Pitch pre-stage output: kernel A's inputs."""
 
     self_lag: torch.Tensor  # (B, 2n) normalized, lag-windowed, zero-padded autocorrelation
-    freq: torch.Tensor  # (B, C) parabolic frequencies of the candidates
+    freq: torch.Tensor  # (B, C) parabolic frequencies of the candidates (0 on dead lanes)
     valid: torch.Tensor  # (B, C) lanes holding a band-passed maximum
     pos: torch.Tensor  # (B, C) Brent start positions (dead lanes: bi + 0.5)
     bi: int  # brent_ixmax = floor(n / 2)
@@ -59,32 +61,17 @@ def lag_candidates(
     maxima in lag order."""
     n = frames.shape[-1]
     dt, dev = frames.dtype, frames.device
-
-    # --- lag-domain normalized autocorrelation (periodic.rs:400-411)
-    self_lag = autocorrelate(frames, n) if precomputed_ac is None else precomputed_ac
-    self_lag = self_lag / torch.amax(torch.abs(self_lag), dim=-1, keepdim=True)
-    self_lag = self_lag / torch.as_tensor(hanning_lag(n), dtype=dt, device=dev)
-    # All-zero frames normalize to 0/0: zero the row (no band-passed maxima,
-    # the unvoiced candidate wins) so no NaN reaches the refine kernel.
-    self_lag = torch.where(torch.isfinite(self_lag), self_lag, 0.0)
-    self_lag = torch.cat([self_lag, torch.zeros_like(self_lag)], dim=-1).contiguous()
-
     bi = int(math.floor(INTERPOLATION_DEPTH * n))  # brent_ixmax
     C = min(max_candidates, bi - 2)  # the maxima axis has bi - 2 centers
 
-    # --- local maxima over self_lag[0..bi) (periodic.rs:413-417)
-    seg = self_lag[:, :bi]
-    peak, peak_rev, peak_fwd = seg[:, 1:-1], seg[:, :-2], seg[:, 2:]
-    is_max = (peak_rev < peak) & (peak_fwd < peak)  # centers 1..bi-2
+    # --- steps 1-3 (periodic.rs:400-439): normalize, lag window, NaN-row
+    # zeroing, 2n pad, 3-point maxima, parabolic frequency, band filter;
+    # kernel G on the card.
+    ac = autocorrelate(frames, n) if precomputed_ac is None else precomputed_ac
+    hl = torch.as_tensor(hanning_lag(n), dtype=dt, device=dev)
+    self_lag, freq_l, cand_l = pitch_pre(ac, hl, bi, sample_rate, fmin, fmax)
+    cand, freq = cand_l[:, 1 : bi - 1], freq_l[:, 1 : bi - 1]  # centers 1..bi-2
     ix = torch.arange(1, bi - 1, device=dev)
-
-    # --- parabolic frequency (periodic.rs:420-425)
-    dr = 0.5 * (peak_fwd - peak_rev)
-    d2r = 2.0 * peak - (peak_rev - peak_fwd)
-    freq = sample_rate / (ix.to(dt)[None, :] + dr / d2r)
-
-    # --- band filter (periodic.rs:439)
-    cand = is_max & ((freq == 0.0) | ((freq > fmin) & (freq < fmax)))
 
     # --- the first C candidates in lag order (reference push order). Valid
     # keys are distinct lags, so the smallest-C selection is exact; the order
