@@ -11,12 +11,18 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the seven kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report;
+   compiler's register report; kernel D's kernels must show 0 bytes of
+   stack frame and spill;
 3. kernels G (pitch_pre) and A-D (refine, burg, find_roots, formant_scan)
    against their plain PyTorch versions on the card, at the shapes of the
    CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels
    recording: 35,689 frames of 2205 samples), in float64 and float32; G
-   bit-exact, a row with a NaN lag included;
+   bit-exact, a row with a NaN lag included; D bit-exact against the plain
+   scan on CPU copies of 4,096 frames, and over every frame of the path by
+   `formant_scan_check` (one batched plain step from each output to the
+   next), as on every path below; then (3b) D on `scan_stress_cases`, its
+   adversarial inputs built from the CLI path's float32 resonances, and on
+   `scan_shape_cases` (R from 1 to 100, L from 1 to 16);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
    launch count reset just before and read just after; G and A-D must have
    run, outputs must be finite (hnr_db is -inf exactly where f0 == 0) and
@@ -53,7 +59,9 @@ checkout. Phases, each an uncaught exception when it fails:
 10. times, float32: each path end to end, one run of each path under
    torch.profiler (the bench path's must hold one launch of G),
    and each kernel against its plain version, with its bound and, for E,
-   the cuFFT library time; G also at the CLI path's shapes.
+   the cuFFT library time; G also at the CLI path's shapes; D at every
+   path's shapes with its chunks, the share whose speculation held and the
+   frames re-run in repair.
 
 Each phase prints the seconds it took.
 
@@ -69,6 +77,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -113,6 +122,7 @@ KERNELS = {
     "viterbi": ("voxtpu_torch/csrc/viterbi.cu", "voxtpu/ops/viterbi_pallas.py:175", "bench"),
     "pitch_pre": ("voxtpu_torch/csrc/pitch_pre.cu", "voxtpu/ops/pitch_pre_pallas.py:110", "bench"),
 }
+PATHS = {"cli": "CLI path", "bench": "bench path", "corpus": "corpus block", "flagship": "flagship path"}
 
 
 class Checks:
@@ -252,11 +262,12 @@ def check_pitch_pre(args, checks: Checks, tag: str) -> float:
     return err
 
 
-def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None = None) -> dict:
+def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None = None) -> tuple[dict, dict]:
     """Kernels G and A-D against their plain versions on the same inputs,
     for one dtype, at the shapes of (F, n) frames. file_len: the frames are
     F / file_len recordings of file_len frames each, as the corpus block
-    hands them to kernel D. Returns {kernel: max_abs_err}."""
+    hands them to kernel D. Returns {kernel: max_abs_err} and kernel D's
+    run: {"args": (rf, rb, ef, eb, file_len), "stats": its repair counts}."""
     import torch
 
     from voxtpu_torch.ops import burg, find_roots, formant_scan, refine
@@ -334,7 +345,150 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
         checks.equal(f"formant_scan bws [{tag}, {case}]", bk_, bp_)
         err = max(err, float((fk_ - fp_).abs().max()), float((bk_ - bp_).abs().max()))
     errs["formant_scan"] = err
-    return errs
+    # Every frame of the path, as the path calls the kernel: one batched
+    # plain step from each output to the next (formant_scan_check).
+    stats = check_scan_every_frame(rf, rb, ef, eb, file_len, checks, f"{tag}, every frame of {len(rf)}")
+    return errs, {"args": (rf, rb, ef, eb, file_len), "stats": stats}
+
+
+def scan_stats_text(stats) -> str:
+    chunks, rerun, frames = stats
+    return f"{chunks} chunks, {chunks - rerun} held ({(chunks - rerun) / chunks:.4f}), {frames} frames re-run"
+
+
+def check_scan_every_frame(rf, rb, ef, eb, file_len, checks: Checks, tag: str) -> list:
+    """Kernel D's output on (rf, rb) held to the serial scan over every frame
+    by `formant_scan_check`; returns the call's repair counts (chunks,
+    chunks re-run, frames re-run)."""
+    import torch
+
+    from voxtpu_torch.ops import formant_scan
+
+    counts = torch.empty(3, dtype=torch.int64, device=rf.device)
+    fk, bk = formant_scan.formant_scan(rf, rb, ef, eb, file_len=file_len, stats=counts)
+    stats = counts.tolist()
+    bad = formant_scan.formant_scan_check(rf, rb, ef, eb, fk, bk, file_len=file_len)
+    checks.true(f"formant_scan [{tag}]", bad.numel() == 0,
+                f"({bad.numel()} frames differ, first {bad[:4].tolist()}); {scan_stats_text(stats)}")
+    return stats
+
+
+def check_scan_stress(rf, rb, ef, eb, checks: Checks) -> None:
+    """Kernel D on `scan_stress_cases` and `scan_shape_cases` (the latter as
+    one recording and as 5), built from float32 resonances, in float32 and
+    float64: every frame by `formant_scan_check`, and bit for bit against
+    the plain scan on CPU copies where a recording has at most 4,096 frames
+    (the plain scan is a Python loop over them). The cases of more than
+    4,096 frames are timed in float32: the zero spans show the repair
+    chain's cost where speculation cannot hold."""
+    import torch
+
+    from voxtpu_torch.ops import formant_scan
+
+    cases = [(name, crf, crb, fl, ef, eb) for name, crf, crb, fl in scan_stress_cases(rf, rb, formant_scan.CHUNK)]
+    for name, crf, crb, sef, seb in scan_shape_cases(rf, rb):
+        cases += [(name, crf, crb, len(crf), sef, seb), (f"{name}, 5 recordings", crf, crb, len(crf) // 5, sef, seb)]
+    for name, crf, crb, fl, ef, eb in cases:
+        for dt in (torch.float32, torch.float64):
+            x = [t.to(dt) for t in (crf, crb, ef, eb)]
+            tag = f"{name}, {'f64' if dt == torch.float64 else 'f32'}"
+            check_scan_every_frame(*x, fl, checks, tag)
+            if dt == torch.float32 and len(crf) > 4096:
+                ms = event_ms(lambda: formant_scan.formant_scan(*x, file_len=fl), runs=3)
+                print(f"  formant_scan [{tag}]: kernel {ms:.3f} ms ({len(crf)} frames)")
+            if fl <= 4096:
+                fk, bk = [t.cpu() for t in formant_scan.formant_scan(*x, file_len=fl)]
+                fp, bp = formant_scan.formant_scan_plain(*[t.cpu() for t in x], file_len=fl)
+                checks.true(f"formant_scan vs plain [{tag}]", torch.equal(fk.view(torch.uint8), fp.view(torch.uint8))
+                            and torch.equal(bk.view(torch.uint8), bp.view(torch.uint8)), "(bit for bit)")
+
+
+def scan_stack_frames(log: str) -> dict:
+    """{kernel: (stack frame, spill stores, spill loads) in bytes} of every
+    formant_scan kernel in the build's `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name and "formant_scan" in name:
+            out[name] = tuple(int(g) for g in m.groups())
+        name = None
+    return out
+
+
+def scan_stress_cases(rf, rb, chunk: int, span: int = 2000, uniform: int = 20000, block: int = 16,
+                      seed: int = 0) -> list:
+    """Kernel D's adversarial inputs, built from a path's resonances rf, rb
+    (F, R), R >= 8, on their device: [(name, rf, rb, file_len)].
+
+    (a) three spans of `span` all-zero rows inserted between speech: no
+        winner, so the carry is held, and a chunk speculated from the seed
+        inside a span cannot meet the true carry there;
+    (b) `uniform` rows of seeded uniform values in [0, 5000) Hz, every 7th
+        row with one of its first six resonances copied into the next (the
+        step-3 dedup branch, argmin ties, step 4's contains test), every
+        11th with a later one copied, and one row NaN from its fourth
+        resonance on (the first NaN distance wins);
+    (c) `block` recordings of F // block frames, one of them all zeros;
+    (d) F in {1, C - 1, C, C + 1, 3C + 7} for the chunk length C, each as
+        one recording and as recordings of the largest proper divisor of F
+        that is not a multiple of C (1 where there is none)."""
+    import torch
+
+    F, R = rf.shape
+    dev, dt = rf.device, rf.dtype
+    cuts = [0, F // 4, F // 2, 3 * F // 4, F]
+    zero = torch.zeros((span, R), dtype=dt, device=dev)
+
+    def with_spans(x):
+        parts = [x[a:b] for a, b in zip(cuts, cuts[1:])]
+        return torch.cat([p for part in parts[:-1] for p in (part, zero)] + [parts[-1]])
+
+    cases = [(f"(a) three spans of {span} zero rows", with_spans(rf), with_spans(rb), F + 3 * span)]
+
+    rng = np.random.default_rng(seed)
+    uf, ub = rng.uniform(0.0, 5000.0, (2, uniform, R))
+    for step, lo, hi in ((7, 0, 6), (11, 6, R - 1)):
+        rows = np.arange(0, uniform, step)
+        cols = rng.integers(lo, hi, len(rows))
+        uf[rows, cols + 1] = uf[rows, cols]
+        ub[rows, cols + 1] = ub[rows, cols]
+    uf[uniform // 2, 3:] = np.nan
+    cases.append((f"(b) {uniform} uniform rows, duplicated pairs, a NaN row",
+                  torch.as_tensor(uf, dtype=dt, device=dev), torch.as_tensor(ub, dtype=dt, device=dev), uniform))
+
+    n = F // block
+    cf, cb = rf[: block * n].clone(), rb[: block * n].clone()
+    cf[5 * n: 6 * n] = 0.0
+    cb[5 * n: 6 * n] = 0.0
+    cases.append((f"(c) {block} recordings x {n} frames, recording 5 all zeros", cf, cb, n))
+
+    for m in (1, chunk - 1, chunk, chunk + 1, 3 * chunk + 7):
+        fl = max([d for d in range(1, m) if m % d == 0 and d % chunk] or [1])
+        cases.append((f"(d) F={m}, one recording", rf[:m], rb[:m], m))
+        cases.append((f"(d) F={m}, recordings of {fl}", rf[:m], rb[:m], fl))
+    return cases
+
+
+def scan_shape_cases(rf, rb, frames: int = 300) -> list:
+    """Kernel D at shapes other than the paths': [(name, rf, rb, ef, eb)]
+    from the first `frames` rows of a path's resonances: rows cut to R = 1,
+    3 or 5, or widened to R = 40 or 100 with the rows of the next frames;
+    seeds of L = 1 to 16 estimates spread over 300-5000 Hz."""
+    import torch
+
+    def widen(a, R):
+        a = a[:frames]
+        return torch.cat([a.roll(-k, 0) for k in range(-(-R // a.shape[1]))], dim=1)[:, :R].contiguous()
+
+    cases = []
+    for R, L in ((1, 4), (3, 3), (5, 1), (32, 6), (32, 16), (40, 8), (100, 16), (100, 2)):
+        est = torch.as_tensor(np.linspace(300.0, 5000.0, L), dtype=rf.dtype, device=rf.device)
+        cases.append((f"R={R}, L={L}", widen(rf, R), widen(rb, R), est, torch.ones_like(est)))
+    return cases
 
 
 def bench_kernel_inputs(frames, out, cfg):
@@ -410,19 +564,21 @@ def check_new_kernels(args: dict, checks: Checks, label: str) -> dict:
     return errs
 
 
-def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks, file_len: int | None = None) -> dict:
+def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks,
+                       file_len: int | None = None) -> tuple[dict, dict]:
     """Every kernel a path launches against its plain version at that
     path's shapes, in float64 and float32. frames64: the path's float64
     frames, (F, n) or (B, F, n); outs: {dtype: the path's output in that
-    dtype} (its candidates feed kernel F). Returns {dtype: {kernel: err}}."""
-    errs = {}
+    dtype} (its candidates feed kernel F). Returns {dtype: {kernel: err}}
+    and {dtype: kernel D's run} (`check_kernels`)."""
+    errs, scans = {}, {}
     for dt, out in outs.items():
         frames = frames64.to(dt)
         print(f"kernels vs plain, {label}, {dt}:")
-        errs[dt] = check_kernels(frames.reshape(-1, frames.shape[-1]), cfg, checks, label, file_len)
+        errs[dt], scans[dt] = check_kernels(frames.reshape(-1, frames.shape[-1]), cfg, checks, label, file_len)
         if cfg.pitch.viterbi:
             errs[dt].update(check_new_kernels(bench_kernel_inputs(frames, out, cfg), checks, label))
-    return errs
+    return errs, scans
 
 
 def check_ct_fused_gate(checks: Checks, dev) -> None:
@@ -463,6 +619,15 @@ def pitch_pre_bound(args) -> tuple[float, str]:
     return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
 
+def formant_scan_bound(rf, L: int) -> tuple[float, str]:
+    """Kernel D's bound in float32 at (F, R) resonances and L estimates:
+    per frame, min(L, 6) nearest-match scans over R values (3 operations
+    each) and about 200 for the slot logic; it reads the rows once and
+    writes (F, L) x 2."""
+    F, R = rf.shape
+    return bound(F * R * 2 * 4 + F * L * 2 * 4, F * (min(L, 6) * R * 3 + 200) / F32_OPS_S)
+
+
 def kernel_bounds(cli: dict, bench: dict) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
@@ -496,12 +661,6 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
     ops_c = Fr * 20 * sum(24 * d + 60 for d in degs)
     bytes_c = Fr * N * 2 * 4 + Fr * (N - 1) * 2 * 4 + Fr * 8
     rf, _, ef, _ = cli["formant_scan"]
-    Fs, R = rf.shape
-    L = ef.shape[0]
-    # D: per frame, min(L, 6) nearest-match scans over R values (3
-    # operations each) and about 200 for the slot logic.
-    ops_d = Fs * (min(L, 6) * R * 3 + 200)
-    bytes_d = Fs * R * 2 * 4 + Fs * L * 2 * 4
     xe, nfft = bench["ct_fused"]
     Fe, ne = xe.shape
     # E: two transforms of nfft points whose time side is real (the input,
@@ -520,7 +679,7 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
         "refine": bound(bytes_a, ops_a / F32_OPS_S),
         "burg": bound(bytes_b, f64_ops / F64_OPS_S + f32_ops / F32_OPS_S),
         "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
-        "formant_scan": bound(bytes_d, ops_d / F32_OPS_S),
+        "formant_scan": formant_scan_bound(rf, ef.shape[0]),
         "ct_fused": bound(bytes_e, ops_e / F32_OPS_S),
         "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
         "pitch_pre": pitch_pre_bound(bench["pitch_pre"]),
@@ -800,9 +959,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_path = kernels.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path.relative_to(ROOT)}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
+    d_frames = scan_stack_frames(build_log)
+    checks.true("formant_scan kernels: 0 bytes stack frame and spill", len(d_frames) == 4
+                and all(v == (0, 0, 0) for v in d_frames.values()), f"{sorted(d_frames.values())} over {len(d_frames)}")
     kernels.library()
 
     # --- data: 126 tiles of the bundled recording
@@ -821,10 +984,16 @@ def main() -> None:
     # --- 3. kernels A-D against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    path_errs = {"cli": check_path_kernels("CLI path", frames64, cfg,
-                                           {torch.float64: None, torch.float32: None}, checks)}
+    path_errs, scan_runs = {}, {}  # {path: {dtype: ...}}, see check_path_kernels
+    path_errs["cli"], scan_runs["cli"] = check_path_kernels(
+        "CLI path", frames64, cfg, {torch.float64: None, torch.float32: None}, checks)
     del frames64
     phase_took("phase 3, kernels vs plain")
+
+    print("kernel D on adversarial inputs from the CLI path's float32 resonances:")
+    rf32, rb32, ef32, eb32, _ = scan_runs["cli"][torch.float32]["args"]
+    check_scan_stress(rf32, rb32, ef32, eb32, checks)
+    phase_took("phase 3b, kernel D on adversarial inputs")
 
     # --- 4. the CLI path, float32
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
@@ -866,7 +1035,7 @@ def main() -> None:
         checks.true(f"{name} launched on the bench path", count > 0, f"({count})")
     check_health("bench path", bout32, checks)
     bout64 = analyze(sig64, bcfg)
-    path_errs["bench"] = check_path_kernels(
+    path_errs["bench"], scan_runs["bench"] = check_path_kernels(
         "bench path", bframes64, bcfg, {torch.float64: bout64, torch.float32: bout32}, checks)
     bench_args32 = bench_kernel_inputs(bframes64.float(), bout32, bcfg)
     del bframes64
@@ -918,7 +1087,7 @@ def main() -> None:
     cfr64 = frame_signal(block64, bcfg.frame_len, bcfg.hop)
     cmask = torch.arange(cfr64.shape[1], device=dev)[None, :] < torch.as_tensor(cframes, device=dev)[:, None]
     cfr64 = cfr64 * cmask[:, :, None].double()
-    path_errs["corpus"] = check_path_kernels(
+    path_errs["corpus"], scan_runs["corpus"] = check_path_kernels(
         "corpus block", cfr64, bcfg,
         {torch.float64: cout64, torch.float32: analyze_batch_padded(block32, lengths, bcfg)},
         checks, file_len=cfr64.shape[1])
@@ -937,7 +1106,7 @@ def main() -> None:
     for name, count in flag_launches.items():
         checks.true(f"{name} launched on the flagship path", count > 0, f"({count})")
     check_health("flagship path", fout32, checks)
-    path_errs["flagship"] = check_path_kernels(
+    path_errs["flagship"], scan_runs["flagship"] = check_path_kernels(
         "flagship path", fframes64, fcfg, {torch.float64: analyze(sig64, fcfg), torch.float32: fout32}, checks)
     del fframes64, fout32
     print("flagship path parity: float64 on the card vs the plain CPU path, first 2 s:")
@@ -1098,6 +1267,29 @@ def main() -> None:
     print(f"  pitch_pre at the CLI path's shapes: kernel {g_cli['cli_ms']:.3f} ms, plain "
           f"{g_cli['cli_plain_ms']:.3f} ms, bound {g_cli['cli_bound_ms']:.4f} ms by bytes ({F} frames)")
     next(r for r in rows if r["name"] == "pitch_pre").update(g_cli)
+    # D on each path: its time at that path's shapes, and the call's chunks,
+    # the share whose speculation held and the frames re-run in repair.
+    launches_by_path = {"cli": cli_launches, "bench": bench_launches, "corpus": corpus_launches,
+                        "flagship": flag_launches}
+    d_paths = {}
+    for path, label in PATHS.items():
+        run = scan_runs[path][torch.float32]
+        drf, drb, def_, deb, dfl = run["args"]
+        chunks, rerun, frames_rerun = run["stats"]
+        d_paths[path] = {
+            "ms": event_ms(lambda: formant_scan.formant_scan(drf, drb, def_, deb, file_len=dfl)),
+            "bound_ms": formant_scan_bound(drf, def_.shape[0])[0], "frames": len(drf),
+            "launches": launches_by_path[path]["formant_scan"], "chunks": chunks,
+            "held_share": (chunks - rerun) / chunks, "frames_rerun": frames_rerun,
+            "stats_f64": scan_runs[path][torch.float64]["stats"],
+        }
+        v = d_paths[path]
+        print(f"  formant_scan, {label}: kernel {v['ms']:.3f} ms ({v['frames']} frames), bound {v['bound_ms']:.4f} ms, "
+              f"{v['launches']} launch(es); {scan_stats_text(run['stats'])} (float64: "
+              f"{scan_stats_text(v['stats_f64'])})")
+    d_row = next(r for r in rows if r["name"] == "formant_scan")
+    d_row.update({k: d_paths["cli"][k] for k in ("chunks", "held_share", "frames_rerun")})
+    d_row["by_path"] = d_paths
 
     phase_took("phase 10, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "vt_refine": "pppppiiiiiiid",
     "vt_burg": "pppiii",
     "vt_roots": "ppppppii",
-    "vt_formant_scan": "ppppppiiii",
+    "vt_formant_scan": "ppppppppiiii",
     "vt_ct_fused": "ppppii",
     "vt_viterbi": "pppppiiidd",
     "vt_pitch_pre": "pppppiiiddd",
