@@ -10,58 +10,70 @@ It fails (nonzero exit, no result lines) without a CUDA device or outside a
 checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. build of the seven kernels from voxtpu_torch/csrc with nvcc, with the
+2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report; kernel D's kernels must show 0 bytes of
    stack frame and spill;
-3. kernels G (pitch_pre) and A-D (refine, burg, find_roots, formant_scan)
-   against their plain PyTorch versions on the card, at the shapes of the
-   CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled two-vowels
-   recording: 35,689 frames of 2205 samples), in float64 and float32; G
-   bit-exact, a row with a NaN lag included; D bit-exact against the plain
+3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
+   P (polish) against their plain PyTorch versions on the card, at the
+   shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
+   two-vowels recording: 35,689 frames of 2205 samples), in float64 and
+   float32; G bit-exact, a row with a NaN lag included; P bit-exact on
+   kernel C's roots and on `polish_edge_cases` (zero, NaN and infinite
+   root slots, polynomials whose Newton step is not finite, -0.0
+   coefficients), as on every path below; D bit-exact against the plain
    scan on CPU copies of 4,096 frames, and over every frame of the path by
    `formant_scan_check` (one batched plain step from each output to the
    next), as on every path below; then (3b) D on `scan_stress_cases`, its
    adversarial inputs built from the CLI path's float32 resonances, and on
    `scan_shape_cases` (R from 1 to 100, L from 1 to 16);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
-   launch count reset just before and read just after; G and A-D must have
-   run, outputs must be finite (hnr_db is -inf exactly where f0 == 0) and
-   every frame's status 0;
+   launch count reset just before and read just after; G, A-D and P must
+   have run once each and E and F not at all, outputs must be finite
+   (hnr_db is -inf exactly where f0 == 0) and every frame's status 0;
 5. parity: float64 on the card through the kernels against the plain CPU
    path over the first 2 s, and float32 against float64 on the card over
    the whole signal within the fast-mode budgets, where a frame over a
    budget must be over it in the plain path too (see `check_budgets`);
-6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024) with the
-   Viterbi path search, over the same 126 tiles (15,369 frames). The path
-   in float32 with all seven launch counts above 0; all seven kernels (A-D,
-   E ct_fused, F viterbi, G) against their plain versions at its shapes in
-   float64 and float32; float64 card-vs-CPU parity over the first 2 s;
+   float64 launches no P (it never polishes);
+6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024, Viterbi
+   off as bench.py runs it) over the same 126 tiles (15,369 frames), every
+   kernel but F launched once; and bench_viterbi, the same with the
+   Viterbi path search, all eight once. On bench_viterbi: all eight kernels
+   against their plain versions at its shapes in float64 and float32;
    float32 against float64 within the budgets by phase 5's rule, the plain
    path over the whole signal built from one period of it
-   (`plain_periodic`); and `analyze_long` against `analyze` in float64;
+   (`plain_periodic`); and `analyze_long` against `analyze` in float64.
+   Float64 card-vs-CPU parity over the first 2 s on both;
 7. the corpus block: `analyze_batch_padded` over 16 recordings (8 tiles
-   each, random gain and trimmed tail), with all seven kernels launched
-   and D, F and G once for the block, each row in float64 equal to
-   `analyze` of its recording, and all seven kernels against their plain
+   each, random gain and trimmed tail), every kernel but F launched once
+   for the block in float32 (corpus), all eight with the path search
+   (corpus_viterbi); in float64 with the path search each row equal to
+   `analyze` of its recording, and all eight kernels against their plain
    versions at the block's shapes (kernel D with one recording's frame
    count as file_len);
-8. the flagship path: `analyze` at FLAGSHIP_44K (2048/512) with the
-   Viterbi path search over the 126 tiles, all seven launch counts above 0,
-   healthy outputs, all seven kernels against their plain versions at its
-   shapes, float64 card-vs-CPU parity over the first 2 s; then kernel E
-   against its plain version at every frame length its gate admits;
+8. the flagship path: `analyze` at FLAGSHIP_44K (2048/512, Viterbi off)
+   over the 126 tiles, every kernel but F launched once, and
+   flagship_viterbi, all eight once; healthy outputs; on flagship_viterbi
+   all eight kernels against their plain versions at its shapes and
+   float64 card-vs-CPU parity over the first 2 s; then kernel E against
+   its plain version at every frame length its gate admits;
 9. the command line, float32, from IEEE-float WAVs of the 126 tiles and of
    the 16 corpus recordings: `python3 -m voxtpu_torch analyze` as a
    subprocess against in-process `analyze`, and `cli.main(["corpus", ...,
    "--batch-files", "16"])` in process (counted launches; its manifest, and
    each file's features against its row of `analyze_batch_padded` over the
    block the command builds), with the command's wall time, reads included;
-10. times, float32: each path end to end, one run of each path under
-   torch.profiler (the bench path's must hold one launch of G),
-   and each kernel against its plain version, with its bound and, for E,
-   the cuFFT library time; G also at the CLI path's shapes; D at every
-   path's shapes with its chunks, the share whose speculation held and the
-   frames re-run in repair.
+10. times, float32: each path (cli, bench, bench_viterbi, corpus,
+   corpus_viterbi, flagship, flagship_viterbi) end to end and under
+   torch.profiler, with kernel P and before it (`eager_polish`): device
+   activities, busy ms and idle share side by side, the CLI path's every
+   activity name; each trace must hold each kernel as often as the path's
+   counted run launched it (P not at all before it; a trace that does not
+   is taken again, at most PROFILE_TRACES in all), and the CLI path's at
+   most 1,000 device activities. Then each kernel against its plain
+   version, with its bound and, for E, the cuFFT library time; G also at
+   the CLI path's shapes; D at every path's shapes with its chunks, the
+   share whose speculation held and the frames re-run in repair.
 
 Each phase prints the seconds it took.
 
@@ -73,6 +85,7 @@ error, times and bound; the last is the device line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -119,9 +132,35 @@ KERNELS = {
     "find_roots": ("voxtpu_torch/csrc/roots.cu", "voxtpu/ops/roots_pallas.py:208", "cli"),
     "formant_scan": ("voxtpu_torch/csrc/formant_scan.cu", "voxtpu/ops/formant_scan_pallas.py:249", "cli"),
     "ct_fused": ("voxtpu_torch/csrc/ct_fused.cu", "voxtpu/ops/ct_fused_pallas.py:187", "bench"),
-    "viterbi": ("voxtpu_torch/csrc/viterbi.cu", "voxtpu/ops/viterbi_pallas.py:175", "bench"),
+    "viterbi": ("voxtpu_torch/csrc/viterbi.cu", "voxtpu/ops/viterbi_pallas.py:175", "bench_viterbi"),
     "pitch_pre": ("voxtpu_torch/csrc/pitch_pre.cu", "voxtpu/ops/pitch_pre_pallas.py:110", "bench"),
+    # P has no Pallas kernel: voxtpu's polish is jnp that XLA fuses.
+    "polish": ("voxtpu_torch/csrc/polish.cu", "voxtpu/roots.py:370", "cli"),
 }
+# Each wrapper's device kernel, as torch.profiler names it (D's wrapper
+# launches formant_scan_speculate and, after it, formant_scan_repair).
+KERNEL_ACTIVITY = {
+    "refine": "refine_kernel", "burg": "burg_kernel", "find_roots": "roots_kernel",
+    "formant_scan": "formant_scan_speculate", "ct_fused": "ct_fused_kernel", "viterbi": "viterbi_kernel",
+    "pitch_pre": "pitch_pre_kernel", "polish": "polish_kernel",
+}
+# torch.profiler keeps the device activities whose timestamps fall inside
+# the active step, but the card's activity clock and the host's disagree by
+# a fraction of a millisecond (the profiler warns "GPU op timestamp <
+# runtime timestamp"). An activity near the step's edge can so land on the
+# wrong side: a trace started right at the run lost the run's first
+# activities, kernel E among them, or took in the warm-up run's last ones.
+# `trace_once` keeps this much idle host time before and after each run.
+PROFILE_PAD_S = 0.02
+# A trace of a run with ~9,500 launches (a path before kernel P) now and
+# then lacks some of them even so, the run's counted launches all right:
+# `profile_path` takes a trace that does not hold each kernel as often as
+# the run launched it again, this many times in all (tools/trace_window.py
+# counts such traces).
+PROFILE_TRACES = 3
+RUN_ANNOTATION = "chip_smoke traced run"
+# The paths whose kernels phases 3 and 6-8 check (bench, corpus and
+# flagship with the Viterbi path search, so that F is checked too).
 PATHS = {"cli": "CLI path", "bench": "bench path", "corpus": "corpus block", "flagship": "flagship path"}
 
 
@@ -215,11 +254,13 @@ def pitch_pre_inputs(frames, cfg):
 
 def kernel_inputs(frames, cfg):
     """Each kernel's arguments at the slice's shapes, computed by the port's
-    own stages from (F, n) raw frames."""
+    own stages from (F, n) raw frames; kernel P's are the reversed monic
+    polynomials and the roots kernel C finds for them."""
     import torch
 
     from voxtpu_torch.formants import formant_candidates
     from voxtpu_torch.ops.burg import burg
+    from voxtpu_torch.ops.find_roots import find_roots
     from voxtpu_torch.pitch import REFINE_SINC_DEPTH, lag_candidates
     from voxtpu_torch.sinc import _max_effective_depth
 
@@ -232,11 +273,13 @@ def kernel_inputs(frames, cfg):
     coeffs, _ = burg(*burg_args)
     poly_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
     roots_args = (poly_re, torch.zeros_like(poly_re))
+    rre, rim, _, _ = find_roots(*roots_args)
+    polish_args = (*roots_args, rre, rim)
     rfreq, rbw, _ = formant_candidates(frames, cfg.sample_rate, f.n_coeffs, polish=f.polish)
     est_f = torch.as_tensor(f.estimates, dtype=frames.dtype, device=frames.device)
     scan_args = (rfreq, rbw, est_f, torch.full_like(est_f, f.estimate_bandwidth))
     return {"refine": refine_args, "burg": burg_args, "find_roots": roots_args, "formant_scan": scan_args,
-            "pitch_pre": pre_args}, lc.valid
+            "pitch_pre": pre_args, "polish": polish_args}, lc.valid
 
 
 def check_pitch_pre(args, checks: Checks, tag: str) -> float:
@@ -262,8 +305,67 @@ def check_pitch_pre(args, checks: Checks, tag: str) -> float:
     return err
 
 
+def polish_edge_cases(c_re, c_im, z_re, z_im, rows: int = 64) -> tuple:
+    """Kernel P's edge rows on a copy of the first `rows` (at least 5) of
+    (F, N) coefficients and roots, N >= 2:
+    row 0: slot 0 is 0 + 0i and slot 1 is -0.0 + 0i (not live: returned
+           as they are);
+    row 1: slot 0 NaN, slot 1 +inf (non-finite residual and step);
+    row 2: an all-zero polynomial (p = p' = 0: den 0, the step 0 / 0);
+    row 3: only the top coefficient, roots 1e-30 (1 + i) and 1e30 (1 - i)
+           in turn (z^k under- or overflows: den 0 or inf, the step
+           non-finite);
+    row 4: -0.0 coefficients (coef's + 0 makes them +0.0)."""
+    c_re, c_im, z_re, z_im = (t[:rows].clone() for t in (c_re, c_im, z_re, z_im))
+    z_re[0, 0], z_re[0, 1] = 0.0, -0.0
+    z_im[0, :2] = 0.0
+    z_re[1, 0] = float("nan")
+    z_re[1, 1] = float("inf")
+    c_re[2:4] = 0.0
+    c_im[2:4] = 0.0
+    c_re[3, -1] = 1.0
+    z_re[3, 0::2], z_im[3, 0::2] = 1e-30, 1e-30
+    z_re[3, 1::2], z_im[3, 1::2] = 1e30, -1e30
+    c_re[4, 0::3] = -0.0
+    c_im[4] = -0.0
+    return c_re, c_im, z_re, z_im
+
+
+def bits(x):
+    """x's bit patterns: equal bits are equal values, NaN and -0.0 included."""
+    import torch
+
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
+
+
+def check_polish(args, checks: Checks, tag: str) -> float:
+    """Kernel P against its plain version by bit pattern (csrc/polish.cu
+    repeats every operation in the same order and precision), on the path's
+    polynomials and kernel C's roots, and on `polish_edge_cases` of its
+    first 64 rows, whose zero slots and non-finite steps must come back as
+    they went in. Returns the max abs error over finite values."""
+    import torch
+
+    from voxtpu_torch.ops import polish
+
+    edge = polish_edge_cases(*args)
+    err = 0.0
+    for case, a in (("", args), (", edge rows", edge)):
+        k = polish.polish_roots(*a)
+        p = polish.polish_roots_plain(*a)
+        for name, kv, pv in zip(("re", "im"), k, p):
+            nbad = int((bits(kv) != bits(pv)).sum())
+            checks.true(f"polish {name} [{tag}{case}]", nbad == 0, f"({nbad} of {kv.numel()} differ in bits)")
+            fin = torch.isfinite(kv) & torch.isfinite(pv)
+            err = max(err, float((kv - pv)[fin].abs().max()) if bool(fin.any()) else 0.0)
+    kept = ((0, slice(0, 2)), (1, slice(0, 2)), (2, slice(None)), (3, slice(None)))
+    same = all(torch.equal(bits(out[r, sl]), bits(z[r, sl])) for out, z in zip(k, edge[2:]) for r, sl in kept)
+    checks.true(f"polish edge rows 0-3 returned as they went in [{tag}]", same)
+    return err
+
+
 def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None = None) -> tuple[dict, dict]:
-    """Kernels G and A-D against their plain versions on the same inputs,
+    """Kernels G, A-D and P against their plain versions on the same inputs,
     for one dtype, at the shapes of (F, n) frames. file_len: the frames are
     F / file_len recordings of file_len frames each, as the corpus block
     hands them to kernel D. Returns {kernel: max_abs_err} and kernel D's
@@ -323,6 +425,7 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     errs["find_roots"] = max(e1, e2)
     checks.equal(f"roots count [{tag}]", rk[2], rp[2])
     checks.equal(f"roots status [{tag}]", rk[3], rp[3])
+    errs["polish"] = check_polish(args["polish"], checks, tag)
 
     # Bit-exact. One recording: over the first 4,096 frames, as the path's
     # call and as 8 recordings of 512 frames (the carry resets at each).
@@ -628,6 +731,25 @@ def formant_scan_bound(rf, L: int) -> tuple[float, str]:
     return bound(F * R * 2 * 4 + F * L * 2 * 4, F * (min(L, 6) * R * 3 + 200) / F32_OPS_S)
 
 
+def polish_bound(args, iters: int = 2) -> tuple[float, str]:
+    """Kernel P's bound at its arguments: it reads the (F, N) coefficient
+    and root pairs once and writes (F, N) pairs; each live slot (a root
+    that is not 0 + 0i; the others only copy) does 1 + 2 iters Horner passes
+    of N - 1 steps and iters Newton steps."""
+    c_re, _, z_re, z_im = args
+    F, N = c_re.shape
+    live = int(((z_re != 0) | (z_im != 0)).sum())
+    # Counted from csrc/polish.cu: a Horner step does 8 operations for p',
+    # 1 negation, 4 double-T products of 22 and 2 double-T sums of 11 (p z),
+    # 2 for the coefficients (+ 0) and 2 double-T sums of 10 (+ c): 141; a
+    # pass 4 more (the top coefficient, the collapse). A Newton step does 23
+    # beside its passes (den, dz, the finite and size test, the step, |p|^2
+    # and its compare); a slot 5 more (the zero test, |p(z0)|^2).
+    per_slot = (1 + 2 * iters) * (141 * (N - 1) + 4) + 23 * iters + 5
+    isz = c_re.element_size()
+    return bound(6 * F * N * isz, live * per_slot / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
 def kernel_bounds(cli: dict, bench: dict) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
@@ -683,6 +805,7 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
         "ct_fused": bound(bytes_e, ops_e / F32_OPS_S),
         "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
         "pitch_pre": pitch_pre_bound(bench["pitch_pre"]),
+        "polish": polish_bound(cli["polish"]),
     }
 
 
@@ -848,25 +971,36 @@ def check_health(label: str, out: dict, checks: Checks) -> None:
           f"{float(out['f0'][voiced].median()):.2f} Hz, median F1 {float(out['formant_freqs'][..., 0].median()):.1f} Hz")
 
 
-def profile_path(label: str, fn, card: str) -> dict:
-    """One warm run of fn under torch.profiler. From the trace alone: the
-    device's busy time (union of its activities' intervals), the traced span
-    (first recorded op to last end) and so the idle share, and the
-    activities with the most device time. The profiler's own host cost
-    lengthens the launch gaps, so the idle share here is an upper bound.
-    Returns {activity name: [count, device us]}."""
+def trace_once(fn) -> dict:
+    """One warm run of fn under torch.profiler, after one run in the
+    profiler's warm-up step, each run between two idle pads of
+    `PROFILE_PAD_S` (see there). From the trace alone: the device's busy
+    time (union of its activities' intervals), the traced span (the run on
+    the host, from its first op to the end of its device sync, pads left
+    out) and so the idle share. The profiler's own host cost lengthens the
+    launch gaps, so the idle share here is an upper bound. Returns
+    {"busy_ms", "span_ms", "idle", "activities", "by_name": {activity name:
+    [count, device us]}}."""
     import collections
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(PROFILE_PAD_S)
+            with record_function(RUN_ANNOTATION):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
     events = prof.events()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise AssertionError("torch.profiler recorded no device activity")
+    # Annotations (the run's and the step's) are no device work.
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    runs = [e for e in events if e.name == RUN_ANNOTATION and e.device_type == torch.autograd.DeviceType.CPU]
+    if not device or len(runs) != 1:
+        raise AssertionError(f"torch.profiler recorded {len(device)} device activities and {len(runs)} runs")
     busy, cur_start, cur_end = 0, None, None
     for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
         if cur_end is None or start > cur_end:
@@ -875,16 +1009,76 @@ def profile_path(label: str, fn, card: str) -> dict:
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    print(f"profile, one warm float32 {label} [{card}]: device busy {busy / 1e3:.3f} ms of a "
-          f"{span / 1e3:.3f} ms traced span, idle share {1 - busy / span:.4f}; {len(device)} device activities")
+    span = runs[0].time_range.elapsed_us()
     by_name = collections.defaultdict(lambda: [0, 0])
     for e in device:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    return {"busy_ms": busy / 1e3, "span_ms": span / 1e3, "idle": 1 - busy / span, "activities": len(device),
+            "by_name": dict(by_name)}
+
+
+def kernel_counts(trace: dict) -> dict:
+    """{profiler name of each kernel (KERNEL_ACTIVITY): its activities in trace}."""
+    return {act: sum(c for name, (c, _us) in trace["by_name"].items() if act in name)
+            for act in KERNEL_ACTIVITY.values()}
+
+
+def profile_path(label: str, fn, card: str, want: dict, top: int | None = 12) -> dict:
+    """`trace_once(fn)`, taken again while its kernels' counts
+    (`kernel_counts`) differ from want, at most PROFILE_TRACES traces in all
+    (see there); the last is returned, with "traces", the number taken.
+    Prints its busy time, span, idle share, activities and the `top`
+    activity names with the most device time (every name when None)."""
+    for n in range(1, PROFILE_TRACES + 1):
+        trace = trace_once(fn)
+        got = kernel_counts(trace)
+        if got == want:
+            break
+        off = {act: f"{c}, not {want[act]}" for act, c in got.items() if c != want[act]}
+        print(f"  {label}: trace {n} held {off}, {trace['activities']} device activities; "
+              f"{'taken again' if n < PROFILE_TRACES else 'no trace left'}")
+    trace["traces"] = n
+    busy, span = trace["busy_ms"], trace["span_ms"]
+    print(f"profile, one warm float32 {label} [{card}]: device busy {busy:.3f} ms of a {span:.3f} ms traced "
+          f"span, idle share {trace['idle']:.4f}; {trace['activities']} device activities (trace {n})")
+    for name, (count, us) in sorted(trace["by_name"].items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:100]}")
-    return by_name
+    return trace
+
+
+def corpus_block(one: np.ndarray, sr: float):
+    """The corpus block's CORPUS_FILES recordings, each CORPUS_TILES tiles
+    of `one` times a gain in [0.5, 2) with up to 1 s of tail cut
+    (`default_rng(0)`): (recordings, their lengths, the zero-padded block)."""
+    rng = np.random.default_rng(0)
+    gains = rng.uniform(0.5, 2.0, CORPUS_FILES)
+    trims = rng.integers(0, int(sr), CORPUS_FILES)
+    recs = [g * np.tile(one, CORPUS_TILES)[: CORPUS_TILES * len(one) - t] for g, t in zip(gains, trims)]
+    lengths = [len(r) for r in recs]
+    block = np.zeros((CORPUS_FILES, max(lengths)))
+    for b, r in enumerate(recs):
+        block[b, : len(r)] = r
+    return recs, lengths, block
+
+
+def with_viterbi(cfg):
+    """cfg with the Viterbi path search on (`--viterbi`)."""
+    return dataclasses.replace(cfg, pitch=dataclasses.replace(cfg.pitch, viterbi=True))
+
+
+@contextlib.contextmanager
+def eager_polish():
+    """The paths as they ran before kernel P: `roots.polish_roots` through
+    the plain version's eager PyTorch ops on the card."""
+    from voxtpu_torch.ops import polish
+
+    kernel = polish.polish_roots
+    polish.polish_roots = polish.polish_roots_plain
+    try:
+        yield
+    finally:
+        polish.polish_roots = kernel
 
 
 def write_float_wav(path, x, sample_rate: float) -> None:
@@ -914,7 +1108,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from voxtpu_torch.frame import frame_signal, num_frames
     from voxtpu_torch.io_wav import read_wav
-    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, pitch_pre, refine, viterbi
+    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, pitch_pre, polish, refine, viterbi
     from voxtpu_torch.pipeline import (
         BENCH_44K, CLI_DEFAULT_44K, FLAGSHIP_44K, analyze, analyze_batch_padded, analyze_long,
     )
@@ -922,7 +1116,7 @@ def main() -> None:
     wrappers = {
         "refine": refine.refine, "burg": burg.burg, "find_roots": find_roots.find_roots,
         "formant_scan": formant_scan.formant_scan, "ct_fused": ct_fused.ct_fused_power_ac,
-        "viterbi": viterbi.viterbi_path, "pitch_pre": pitch_pre.pitch_pre,
+        "viterbi": viterbi.viterbi_path, "pitch_pre": pitch_pre.pitch_pre, "polish": polish.polish_roots,
     }
     checks = Checks()
     t_start = t_phase = time.perf_counter()
@@ -943,6 +1137,13 @@ def main() -> None:
         counts = {name: w.launches for name, w in wrappers.items()}
         print(f"{label}: launches {counts}")
         return out, counts
+
+    def expect_launches(where: str, counts: dict, **zero_or_more) -> None:
+        """Every kernel launched exactly once in a counted run, except the
+        counts named in zero_or_more."""
+        for name, count in counts.items():
+            want = zero_or_more.get(name, 1)
+            checks.true(f"{name} launched {want} time(s) {where}", count == want, f"({count})")
 
     # --- 1. the card
     smi = subprocess.run(
@@ -981,7 +1182,7 @@ def main() -> None:
     print(f"CLI path: {len(signal)} samples ({audio_s:.1f} s), {F} frames of {cfg.frame_len}, hop {cfg.hop}")
     checks.true("frame count", F == EXPECTED_FRAMES, f"{F}")
 
-    # --- 3. kernels A-D against their plain versions
+    # --- 3. kernels G, A-D and P against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path_errs, scan_runs = {}, {}  # {path: {dtype: ...}}, see check_path_kernels
@@ -1000,8 +1201,7 @@ def main() -> None:
     torch.cuda.synchronize()
     out32, cli_launches = run_counted("CLI path float32", lambda: analyze(sig32, cfg))
     # 2205-sample frames take cuFFT, not E, and the CLI default runs no path search (F).
-    for name in ("pitch_pre", "refine", "burg", "find_roots", "formant_scan"):
-        checks.true(f"{name} launched on the CLI path", cli_launches[name] > 0, f"({cli_launches[name]})")
+    expect_launches("on the CLI path", cli_launches, ct_fused=0, viterbi=0)
     shapes = {k: tuple(v.shape) for k, v in out32.items()}
     checks.true("output shapes", shapes["f0"] == (F,) and shapes["formant_freqs"] == (F, 4)
                 and shapes["mfcc"] == (F, 13) and shapes["pitch_candidates_freq"] == (F, 33), str(shapes))
@@ -1017,69 +1217,64 @@ def main() -> None:
     phase_took("phase 5, float64 parity")
 
     print("parity: float32 vs float64 on the card, whole signal:")
-    out64 = analyze(sig64, cfg)
+    out64, cli64_launches = run_counted("CLI path float64", lambda: analyze(sig64, cfg))
+    expect_launches("on the CLI path in float64", cli64_launches, ct_fused=0, viterbi=0, polish=0)
     check_budgets(out32, out64, signal, cfg, checks)
     del out64, card64, cpu64
     phase_took("phase 5, float32 budgets")
 
-    # --- 6. the bench path: BENCH_44K with the Viterbi path search
-    bcfg = dataclasses.replace(BENCH_44K, pitch=dataclasses.replace(BENCH_44K.pitch, viterbi=True))
+    # --- 6. the bench path: BENCH_44K as bench.py runs it (Viterbi off), and
+    # bench_viterbi, with the path search, which the checks below run
+    bcfg, bvcfg = BENCH_44K, with_viterbi(BENCH_44K)
     bframes64 = frame_signal(sig64, bcfg.frame_len, bcfg.hop)
     FB = bframes64.shape[0]
-    print(f"bench path: {FB} frames of {bcfg.frame_len}, hop {bcfg.hop}, Viterbi on")
+    print(f"bench path: {FB} frames of {bcfg.frame_len}, hop {bcfg.hop}, Viterbi off; bench_viterbi: Viterbi on")
     checks.true("bench frame count", FB == BENCH_FRAMES, f"{FB}")
-    analyze(sig32[: 50 * bcfg.hop + bcfg.frame_len], bcfg)
+    analyze(sig32[: 50 * bcfg.hop + bcfg.frame_len], bvcfg)
     torch.cuda.synchronize()
     bout32, bench_launches = run_counted("bench path float32", lambda: analyze(sig32, bcfg))
-    for name, count in bench_launches.items():
-        checks.true(f"{name} launched on the bench path", count > 0, f"({count})")
+    expect_launches("on the bench path", bench_launches, viterbi=0)
     check_health("bench path", bout32, checks)
-    bout64 = analyze(sig64, bcfg)
+    bout32, bench_v_launches = run_counted("bench_viterbi path float32", lambda: analyze(sig32, bvcfg))
+    expect_launches("on the bench_viterbi path", bench_v_launches)
+    check_health("bench_viterbi path", bout32, checks)
+    bout64 = analyze(sig64, bvcfg)
     path_errs["bench"], scan_runs["bench"] = check_path_kernels(
-        "bench path", bframes64, bcfg, {torch.float64: bout64, torch.float32: bout32}, checks)
-    bench_args32 = bench_kernel_inputs(bframes64.float(), bout32, bcfg)
+        "bench path", bframes64, bvcfg, {torch.float64: bout64, torch.float32: bout32}, checks)
+    bench_args32 = bench_kernel_inputs(bframes64.float(), bout32, bvcfg)
     del bframes64
     phase_took("phase 6, bench path and its kernels vs plain")
 
-    print("bench path parity: float64 on the card vs the plain CPU path, first 2 s:")
-    compare_slice("bench f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), bcfg),
-                  analyze(torch.as_tensor(head), bcfg), sr, checks)
-    print("bench path: float32 vs float64 on the card, whole signal, against the plain path:")
-    plain = {dt: plain_periodic(one, TILES, bcfg, dt, FB, dev) for dt in (torch.float32, torch.float64)}
+    print("bench path parity: float64 on the card vs the plain CPU path, first 2 s, Viterbi off and on:")
+    for label, c in (("bench", bcfg), ("bench_viterbi", bvcfg)):
+        compare_slice(f"{label} f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), c),
+                      analyze(torch.as_tensor(head), c), sr, checks)
+    print("bench_viterbi path: float32 vs float64 on the card, whole signal, against the plain path:")
+    plain = {dt: plain_periodic(one, TILES, bvcfg, dt, FB, dev) for dt in (torch.float32, torch.float64)}
     hold_budgets(
         "bench", bout32, bout64,
         lambda key, idx: frame_err(key, plain[torch.float32][key][idx], plain[torch.float64][key][idx],
                                    plain[torch.float64]["f0"][idx]),
         checks,
     )
-    print("bench path: analyze_long (chunks of 4096 frames) vs analyze, float64 on the card:")
-    compare_slice("bench analyze_long vs analyze", analyze_long(sig64, bcfg, chunk_frames=4096), bout64, sr, checks)
+    print("bench_viterbi path: analyze_long (chunks of 4096 frames) vs analyze, float64 on the card:")
+    compare_slice("bench analyze_long vs analyze", analyze_long(sig64, bvcfg, chunk_frames=4096), bout64, sr, checks)
     del bout64, plain
     phase_took("phase 6, bench parity, budgets, analyze_long")
 
     # --- 7. the corpus block
-    rng = np.random.default_rng(0)
-    gains = rng.uniform(0.5, 2.0, CORPUS_FILES)
-    trims = rng.integers(0, int(sr), CORPUS_FILES)
-    recs = [g * np.tile(one, CORPUS_TILES)[: CORPUS_TILES * len(one) - t] for g, t in zip(gains, trims)]
-    lengths = [len(r) for r in recs]
-    block = np.zeros((CORPUS_FILES, max(lengths)))
-    for b, r in enumerate(recs):
-        block[b, : len(r)] = r
+    recs, lengths, block = corpus_block(one, sr)
     block64 = torch.as_tensor(block, device=dev)
     block32 = block64.float()
     corpus_s = sum(lengths) / sr
     cframes = [(n - bcfg.frame_len) // bcfg.hop + 1 for n in lengths]
     print(f"corpus block: {CORPUS_FILES} recordings, {corpus_s:.1f} s, {sum(cframes)} frames")
-    cout64, corpus_launches = run_counted(
-        "corpus block float64", lambda: analyze_batch_padded(block64, lengths, bcfg))
-    for name, count in corpus_launches.items():
-        checks.true(f"{name} launched for the block", count > 0, f"({count})")
-    for name in ("formant_scan", "viterbi", "pitch_pre"):
-        checks.true(f"{name} launched once for the block", corpus_launches[name] == 1, f"({corpus_launches[name]})")
+    cout64, corpus64_launches = run_counted(
+        "corpus_viterbi block float64", lambda: analyze_batch_padded(block64, lengths, bvcfg))
+    expect_launches("for the corpus_viterbi block in float64", corpus64_launches, polish=0)
     for b, r in enumerate(recs):
         row = {k: v[b, : cframes[b]] for k, v in cout64.items()}
-        compare_slice(f"corpus row {b} vs analyze", row, analyze(torch.as_tensor(r, device=dev), bcfg), sr, checks)
+        compare_slice(f"corpus row {b} vs analyze", row, analyze(torch.as_tensor(r, device=dev), bvcfg), sr, checks)
     check_health("corpus block", {k: torch.cat([v[b, : nf] for b, nf in enumerate(cframes)])
                                   for k, v in cout64.items()}, checks)
     # The block's frames as the path builds them: (16, F, n), each recording's
@@ -1087,31 +1282,37 @@ def main() -> None:
     cfr64 = frame_signal(block64, bcfg.frame_len, bcfg.hop)
     cmask = torch.arange(cfr64.shape[1], device=dev)[None, :] < torch.as_tensor(cframes, device=dev)[:, None]
     cfr64 = cfr64 * cmask[:, :, None].double()
+    _, corpus_launches = run_counted("corpus block float32", lambda: analyze_batch_padded(block32, lengths, bcfg))
+    expect_launches("for the corpus block", corpus_launches, viterbi=0)
+    cout32, corpus_v_launches = run_counted(
+        "corpus_viterbi block float32", lambda: analyze_batch_padded(block32, lengths, bvcfg))
+    expect_launches("for the corpus_viterbi block", corpus_v_launches)
     path_errs["corpus"], scan_runs["corpus"] = check_path_kernels(
-        "corpus block", cfr64, bcfg,
-        {torch.float64: cout64, torch.float32: analyze_batch_padded(block32, lengths, bcfg)},
-        checks, file_len=cfr64.shape[1])
-    del cout64, cfr64
+        "corpus block", cfr64, bvcfg, {torch.float64: cout64, torch.float32: cout32}, checks, file_len=cfr64.shape[1])
+    del cout64, cout32, cfr64
     phase_took("phase 7, corpus block and its kernels vs plain")
 
-    # --- 8. the flagship path: FLAGSHIP_44K (2048/512) with the Viterbi path
-    # search, and kernel E at every frame length its gate admits
-    fcfg = dataclasses.replace(FLAGSHIP_44K, pitch=dataclasses.replace(FLAGSHIP_44K.pitch, viterbi=True))
+    # --- 8. the flagship path: FLAGSHIP_44K (2048/512) as the reference
+    # runs it (Viterbi off), flagship_viterbi with the path search, and
+    # kernel E at every frame length its gate admits
+    fcfg, fvcfg = FLAGSHIP_44K, with_viterbi(FLAGSHIP_44K)
     fframes64 = frame_signal(sig64, fcfg.frame_len, fcfg.hop)
     FF = fframes64.shape[0]
-    print(f"flagship path: {FF} frames of {fcfg.frame_len}, hop {fcfg.hop}, Viterbi on")
-    analyze(sig32[: 50 * fcfg.hop + fcfg.frame_len], fcfg)
+    print(f"flagship path: {FF} frames of {fcfg.frame_len}, hop {fcfg.hop}, Viterbi off; flagship_viterbi: on")
+    analyze(sig32[: 50 * fcfg.hop + fcfg.frame_len], fvcfg)
     torch.cuda.synchronize()
     fout32, flag_launches = run_counted("flagship path float32", lambda: analyze(sig32, fcfg))
-    for name, count in flag_launches.items():
-        checks.true(f"{name} launched on the flagship path", count > 0, f"({count})")
+    expect_launches("on the flagship path", flag_launches, viterbi=0)
     check_health("flagship path", fout32, checks)
+    fout32, flag_v_launches = run_counted("flagship_viterbi path float32", lambda: analyze(sig32, fvcfg))
+    expect_launches("on the flagship_viterbi path", flag_v_launches)
+    check_health("flagship_viterbi path", fout32, checks)
     path_errs["flagship"], scan_runs["flagship"] = check_path_kernels(
-        "flagship path", fframes64, fcfg, {torch.float64: analyze(sig64, fcfg), torch.float32: fout32}, checks)
+        "flagship path", fframes64, fvcfg, {torch.float64: analyze(sig64, fvcfg), torch.float32: fout32}, checks)
     del fframes64, fout32
-    print("flagship path parity: float64 on the card vs the plain CPU path, first 2 s:")
-    compare_slice("flagship f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), fcfg),
-                  analyze(torch.as_tensor(head), fcfg), sr, checks)
+    print("flagship_viterbi path parity: float64 on the card vs the plain CPU path, first 2 s:")
+    compare_slice("flagship f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), fvcfg),
+                  analyze(torch.as_tensor(head), fvcfg), sr, checks)
     print("kernel E vs plain at every frame length its gate admits:")
     check_ct_fused_gate(checks, dev)
     phase_took("phase 8, flagship path and kernel E's gate")
@@ -1156,9 +1357,7 @@ def main() -> None:
         (rc, corpus_wall), cli_corpus_launches = run_counted(
             "corpus --batch-files 16 float32", lambda: corpus(tmp / "features"))
         checks.true("corpus exit 0", rc == 0, f"({rc})")
-        for name in ("pitch_pre", "refine", "burg", "find_roots", "formant_scan"):
-            checks.true(f"{name} launched once for the corpus command's block", cli_corpus_launches[name] == 1,
-                        f"({cli_corpus_launches[name]})")
+        expect_launches("for the corpus command's block", cli_corpus_launches, ct_fused=0, viterbi=0)
         manifest = json.loads((tmp / "features" / "manifest.json").read_text())
         nfr = [num_frames(len(r), ccfg.frame_len, ccfg.hop) for r in recs]
         checks.true("corpus manifest: 16 files, status 0, frame counts",
@@ -1193,22 +1392,54 @@ def main() -> None:
           f"{100 * corpus_reads / corpus_warm:.1f}% of the second run [{card}]")
     phase_took("phase 9, the command line")
 
-    # --- 10. times (float32)
-    e2e = {
-        "cli": (sync_ms(lambda: analyze(sig32, cfg)), audio_s),
-        "bench": (sync_ms(lambda: analyze(sig32, bcfg)), audio_s),
-        "corpus": (sync_ms(lambda: analyze_batch_padded(block32, lengths, bcfg)), corpus_s),
-        "flagship": (sync_ms(lambda: analyze(sig32, fcfg)), audio_s),
+    # --- 10. times (float32): each path with kernel P, and before it, with
+    # the polish as the plain version's eager ops (`eager_polish`)
+    runs = {
+        "cli": (lambda: analyze(sig32, cfg), audio_s),
+        "bench": (lambda: analyze(sig32, bcfg), audio_s),
+        "bench_viterbi": (lambda: analyze(sig32, bvcfg), audio_s),
+        "corpus": (lambda: analyze_batch_padded(block32, lengths, bcfg), corpus_s),
+        "corpus_viterbi": (lambda: analyze_batch_padded(block32, lengths, bvcfg), corpus_s),
+        "flagship": (lambda: analyze(sig32, fcfg), audio_s),
+        "flagship_viterbi": (lambda: analyze(sig32, fvcfg), audio_s),
     }
-    for path, (ms, secs) in e2e.items():
-        print(f"end to end, float32, {path} path: {ms:.2f} ms for {secs:.1f} s of audio = "
-              f"{secs / (ms / 1e3):.1f} audio-s/s [{card}]")
-    profile_path("CLI-path analyze", lambda: analyze(sig32, cfg), card)
-    prof = profile_path("bench-path analyze (Viterbi on)", lambda: analyze(sig32, bcfg), card)
-    g_acts = sum(c for name, (c, _us) in prof.items() if "pitch_pre_kernel" in name)
-    checks.true("bench-path profile: one pitch_pre_kernel", g_acts == 1, f"({g_acts})")
-    profile_path("flagship-path analyze (Viterbi on)", lambda: analyze(sig32, fcfg), card)
-    profile_path("corpus block (Viterbi on)", lambda: analyze_batch_padded(block32, lengths, bcfg), card)
+    launches_by_path = {
+        "cli": cli_launches, "bench": bench_launches, "bench_viterbi": bench_v_launches,
+        "corpus": corpus_launches, "corpus_viterbi": corpus_v_launches, "flagship": flag_launches,
+        "flagship_viterbi": flag_v_launches, "corpus_command": cli_corpus_launches,
+    }
+    e2e, e2e_eager, profs, profs_eager = {}, {}, {}, {}
+    for path, (fn, secs) in runs.items():
+        with eager_polish():
+            e2e_eager[path] = sync_ms(fn)
+        e2e[path] = sync_ms(fn)
+        print(f"end to end, float32, {path} path: {e2e[path]:.2f} ms for {secs:.1f} s of audio = "
+              f"{secs / (e2e[path] / 1e3):.1f} audio-s/s; before P (eager polish) {e2e_eager[path]:.2f} ms [{card}]")
+    # Each trace must hold each kernel as often as the path's counted run
+    # launched it (none of P before it).
+    want = {path: {act: launches_by_path[path][name] for name, act in KERNEL_ACTIVITY.items()} for path in runs}
+    for path, (fn, _secs) in runs.items():
+        with eager_polish():
+            profs_eager[path] = profile_path(f"{path} path, before P (eager polish)", fn, card,
+                                             {**want[path], KERNEL_ACTIVITY["polish"]: 0}, top=4)
+        # The CLI path's every activity name: what is left on the host.
+        profs[path] = profile_path(f"{path} path", fn, card, want[path], top=None if path == "cli" else 12)
+    for path, after in profs.items():
+        before = profs_eager[path]
+        print(f"{path} path, before -> after P [{card}]: device activities {before['activities']} -> "
+              f"{after['activities']}; busy {before['busy_ms']:.3f} -> {after['busy_ms']:.3f} ms; idle share "
+              f"{before['idle']:.4f} -> {after['idle']:.4f}; end to end {e2e_eager[path]:.2f} -> {e2e[path]:.2f} ms")
+
+    for path in runs:
+        for label, prof, polish_count in ((f"{path} path profile before P", profs_eager[path], 0),
+                                          (f"{path} path profile", profs[path], 1)):
+            got = kernel_counts(prof)
+            for name, activity in KERNEL_ACTIVITY.items():
+                n = polish_count if name == "polish" else launches_by_path[path][name]
+                checks.true(f"{label}: {activity} {n} time(s)", got[activity] == n,
+                            f"({got[activity]}; trace {prof['traces']} of at most {PROFILE_TRACES})")
+    checks.true("CLI-path profile: at most 1,000 device activities", profs["cli"]["activities"] <= 1000,
+                f"({profs['cli']['activities']})")
 
     args32, _ = kernel_inputs(frame_signal(sig32, cfg.frame_len, cfg.hop), cfg)
     bounds = kernel_bounds(args32, bench_args32)
@@ -1236,27 +1467,30 @@ def main() -> None:
                     lambda: viterbi.viterbi_path_plain(lv[:vprefix], fv[:vprefix], vv[:vprefix], ojc, vuc), vprefix, None),
         "pitch_pre": (lambda: pitch_pre.pitch_pre(*bench_args32["pitch_pre"]),
                       lambda: pitch_pre.pitch_pre_plain(*bench_args32["pitch_pre"]), FB, None),
+        # plain: the eager ops the CLI path ran before P
+        "polish": (lambda: polish.polish_roots(*args32["polish"]),
+                   lambda: polish.polish_roots_plain(*args32["polish"]), F, None),
     }
     rows = []
     for name, (kfn, pfn, plain_frames, lfn) in timing.items():
         src, replaces, path = KERNELS[name]
+        checked = path.removesuffix("_viterbi")  # the path whose kernel checks hold its errors
         frames_k = F if path == "cli" else FB
         ms = event_ms(kfn)
         plain_ms = event_ms(pfn, runs=1 if plain_frames < frames_k else 3)
         library_ms = event_ms(lfn) if lfn is not None else None
         bound_ms, bound_by = bounds[name]
-        launches = (cli_launches if path == "cli" else bench_launches)[name]
+        launches = launches_by_path[path][name]
         print(f"  {name}: kernel {ms:.3f} ms ({frames_k} frames, {path} path), plain {plain_ms:.3f} ms "
               f"({plain_frames} frames), library {'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
               f"bound {bound_ms:.4f} ms by {bound_by}, {launches} launch(es) on the {path} path")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": path_errs[path][torch.float32][name], "ms": ms,
+            "launches": launches, "max_abs_err": path_errs[checked][torch.float32][name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "max_abs_err_f64": path_errs[path][torch.float64][name], "path": path, "frames": frames_k,
+            "max_abs_err_f64": path_errs[checked][torch.float64][name], "path": path, "frames": frames_k,
             "plain_frames": plain_frames,
-            "launches_by_path": {"cli": cli_launches[name], "bench": bench_launches[name],
-                                 "corpus": corpus_launches[name], "flagship": flag_launches[name]},
+            "launches_by_path": {p: counts[name] for p, counts in launches_by_path.items()},
             "max_abs_err_by_path": {p: {"f32": e[torch.float32][name], "f64": e[torch.float64][name]}
                                     for p, e in path_errs.items() if name in e[torch.float32]},
         })
@@ -1269,8 +1503,6 @@ def main() -> None:
     next(r for r in rows if r["name"] == "pitch_pre").update(g_cli)
     # D on each path: its time at that path's shapes, and the call's chunks,
     # the share whose speculation held and the frames re-run in repair.
-    launches_by_path = {"cli": cli_launches, "bench": bench_launches, "corpus": corpus_launches,
-                        "flagship": flag_launches}
     d_paths = {}
     for path, label in PATHS.items():
         run = scan_runs[path][torch.float32]
@@ -1294,8 +1526,13 @@ def main() -> None:
     phase_took("phase 10, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
-    print(json.dumps({"e2e_ms": {k: v[0] for k, v in e2e.items()},
-                      "audio_s_per_s": {k: v[1] / (v[0] / 1e3) for k, v in e2e.items()},
+
+    def device(p):
+        return {k: p[k] for k in ("busy_ms", "span_ms", "idle", "activities", "traces")}
+
+    print(json.dumps({"e2e_ms": e2e, "audio_s_per_s": {k: runs[k][1] / (v / 1e3) for k, v in e2e.items()},
+                      "device": {k: device(v) for k, v in profs.items()},
+                      "before_p": {"e2e_ms": e2e_eager, "device": {k: device(v) for k, v in profs_eager.items()}},
                       "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF},
                       "corpus_command_s": {"first": corpus_wall, "second": corpus_warm}, "card": card}))
     print(card)

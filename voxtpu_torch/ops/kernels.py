@@ -53,6 +53,7 @@ _SIGNATURES = {
     "vt_ct_fused": "ppppii",
     "vt_viterbi": "pppppiiidd",
     "vt_pitch_pre": "pppppiiiddd",
+    "vt_polish": "ppppppiiid",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -8,8 +8,9 @@ initial live degree held through deflation, the Horner accumulator order,
 the |p(z)| <= 1e-16 freeze, the larger-hypot denominator choice, and the
 principal (polar) complex sqrt in the quadratic tail.
 
-`polish_roots` (the f32 compensated-Newton polish of voxtpu.roots) is plain
-PyTorch, as in voxtpu.
+`polish_roots` (the f32 compensated-Newton polish of voxtpu.roots) runs
+through kernel P (voxtpu_torch.ops.polish) the same way: the CUDA kernel on
+the card, its plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from voxtpu_torch.cplx import C, cadd, cdiv, cmul, cneg, cnorm, csqrt, csub
 from voxtpu_torch.ops import find_roots as _find_roots
+from voxtpu_torch.ops import polish as _polish
 
 __all__ = ["degree", "off_low", "laguerre", "find_roots", "polish_roots"]
 
@@ -116,98 +118,15 @@ def find_roots(c: C) -> tuple[C, torch.Tensor, torch.Tensor]:
     return C(rre.reshape(batch + (N,)), rim.reshape(batch + (N,))), count.reshape(batch), status.reshape(batch)
 
 
-# ---- compensated (double-float32) Newton polish ----------------------------
-# Error-free transforms (Knuth two_sum, Dekker split/two_prod) evaluate the
-# ORIGINAL polynomial's residual to ~f64 accuracy in f32, so a couple of
-# Newton steps recover the accuracy that deflation lost (voxtpu.roots).
-
-
-def _two_sum(a, b):
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def _quick_two_sum(a, b):
-    s = a + b
-    return s, b - (s - a)
-
-
-_SPLIT = 4097.0  # 2**12 + 1: Dekker split point for the 24-bit f32 significand
-
-
-def _two_prod(a, b):
-    p = a * b
-    ca = a * _SPLIT
-    ah = ca - (ca - a)
-    al = a - ah
-    cb = b * _SPLIT
-    bh = cb - (cb - b)
-    bl = b - bh
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
-
-
-def _df_add(x, y):
-    s, e = _two_sum(x[0], y[0])
-    return _quick_two_sum(s, e + x[1] + y[1])
-
-
-def _df_add_f(x, f):
-    s, e = _two_sum(x[0], f)
-    return _quick_two_sum(s, e + x[1])
-
-
-def _df_mul_f(x, f):
-    p, e = _two_prod(x[0], f)
-    return _quick_two_sum(p, e + x[1] * f)
-
-
-def _horner_df(c: C, zr, zi):
-    """p(z) in double-f32 (collapsed at the end) and p'(z) in plain f32;
-    c (..., N), z (..., M): every root slot evaluates its frame's polynomial."""
-    N = c.re.shape[-1]
-    zero = torch.zeros_like(zr)
-
-    def coef(j):
-        return c.re[..., j][..., None] + zero, c.im[..., j][..., None] + zero
-
-    cr, ci = coef(N - 1)
-    ar = (cr, zero)
-    ai = (ci, zero)
-    br, bi = zero, zero
-    for j in range(N - 2, -1, -1):
-        br, bi = br * zr - bi * zi + ar[0], br * zi + bi * zr + ai[0]
-        re = _df_add(_df_mul_f(ar, zr), _df_mul_f(ai, -zi))
-        im = _df_add(_df_mul_f(ar, zi), _df_mul_f(ai, zr))
-        cr, ci = coef(j)
-        ar = _df_add_f(re, cr)
-        ai = _df_add_f(im, ci)
-    return ar[0] + ar[1], ai[0] + ai[1], br, bi
-
-
 def polish_roots(c: C, roots: C, iters: int = 2, max_step: float = 0.5) -> C:
     """Compensated-Newton refinement of f32 roots against the original
-    polynomial. A step is kept only while it reduces |p(z)|; zero root slots
-    stay untouched."""
-    zr0, zi0 = roots.re, roots.im
-    live = (zr0 != 0) | (zi0 != 0)
-    pr, pi, _, _ = _horner_df(c, zr0, zi0)
-    best_r, best_i = zr0, zi0
-    best_n = pr * pr + pi * pi
-    cur_r, cur_i = zr0, zi0
-    ms2 = max_step * max_step
-    for _ in range(iters):
-        pr, pi, dpr, dpi = _horner_df(c, cur_r, cur_i)
-        den = dpr * dpr + dpi * dpi
-        dzr = (pr * dpr + pi * dpi) / den
-        dzi = (pi * dpr - pr * dpi) / den
-        ok = torch.isfinite(dzr) & torch.isfinite(dzi) & (dzr * dzr + dzi * dzi <= ms2)
-        cur_r = torch.where(ok, cur_r - dzr, cur_r)
-        cur_i = torch.where(ok, cur_i - dzi, cur_i)
-        prn, pin_, _, _ = _horner_df(c, cur_r, cur_i)
-        n_new = prn * prn + pin_ * pin_
-        better = n_new < best_n  # False for NaN
-        best_r = torch.where(better, cur_r, best_r)
-        best_i = torch.where(better, cur_i, best_i)
-        best_n = torch.where(better, n_new, best_n)
-    return C(torch.where(live, best_r, zr0), torch.where(live, best_i, zi0))
+    polynomial (kernel P, voxtpu_torch.ops.polish). A step is kept only
+    while it reduces |p(z)|; zero root slots stay untouched. c and roots:
+    (..., N) pairs of one shape."""
+    batch = c.re.shape[:-1]
+    N = c.re.shape[-1]
+    if roots.re.shape != c.re.shape:
+        raise ValueError(f"polish_roots: roots {tuple(roots.re.shape)} must match coefficients {tuple(c.re.shape)}")
+    re, im = _polish.polish_roots(*(t.reshape(-1, N) for t in (c.re, c.im, roots.re, roots.im)),
+                                  iters=iters, max_step=max_step)
+    return C(re.reshape(batch + (N,)), im.reshape(batch + (N,)))
