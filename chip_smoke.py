@@ -11,8 +11,8 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; kernel D's kernels must show 0 bytes of
-   stack frame and spill;
+   compiler's register report; kernel D's and kernel E's kernels must show
+   0 bytes of stack frame and spill;
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
@@ -73,7 +73,9 @@ checkout. Phases, each an uncaught exception when it fails:
    most 1,000 device activities. Then each kernel against its plain
    version, with its bound and, for E, the cuFFT library time; G also at
    the CLI path's shapes; D at every path's shapes with its chunks, the
-   share whose speculation held and the frames re-run in repair.
+   share whose speculation held and the frames re-run in repair; E at the
+   bench, corpus-block and flagship shapes beside its bound and cuFFT, and
+   in float64 at the bench shapes beside its plain version.
 
 Each phase prints the seconds it took.
 
@@ -237,6 +239,16 @@ def event_ms(fn, runs: int = 5) -> float:
     return start.elapsed_time(end) / runs
 
 
+def hann_windowed(frames):
+    """(..., n) frames times the n-point Hann window, as the path windows
+    them before kernel E (or cuFFT)."""
+    import torch
+
+    from voxtpu_torch.windows import hann
+
+    return frames * torch.as_tensor(hann(frames.shape[-1]), dtype=frames.dtype, device=frames.device)
+
+
 def pitch_pre_inputs(frames, cfg):
     """Kernel G's arguments at (F, n) raw frames: the quirked lags of the
     Hann-windowed frames (through E or cuFFT, as the path computes them),
@@ -244,10 +256,10 @@ def pitch_pre_inputs(frames, cfg):
     import torch
 
     from voxtpu_torch.autocorr import autocorrelate
-    from voxtpu_torch.windows import hann, hanning_lag
+    from voxtpu_torch.windows import hanning_lag
 
     n = frames.shape[-1]
-    windowed = frames * torch.as_tensor(hann(n), dtype=frames.dtype, device=frames.device)
+    windowed = hann_windowed(frames)
     hl = torch.as_tensor(hanning_lag(n), dtype=frames.dtype, device=frames.device)
     return windowed, (autocorrelate(windowed, n), hl, n // 2, cfg.sample_rate, cfg.pitch.fmin, cfg.pitch.fmax)
 
@@ -506,9 +518,9 @@ def check_scan_stress(rf, rb, ef, eb, checks: Checks) -> None:
                             and torch.equal(bk.view(torch.uint8), bp.view(torch.uint8)), "(bit for bit)")
 
 
-def scan_stack_frames(log: str) -> dict:
+def stack_frames(log: str, kernel: str) -> dict:
     """{kernel: (stack frame, spill stores, spill loads) in bytes} of every
-    formant_scan kernel in the build's `-Xptxas -v` report."""
+    kernel whose name holds `kernel` in the build's `-Xptxas -v` report."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -516,7 +528,7 @@ def scan_stack_frames(log: str) -> dict:
             name = m.group(1)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name and "formant_scan" in name:
+        if m and name and kernel in name:
             out[name] = tuple(int(g) for g in m.groups())
         name = None
     return out
@@ -750,6 +762,30 @@ def polish_bound(args, iters: int = 2) -> tuple[float, str]:
     return bound(6 * F * N * isz, live * per_slot / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
 
+def ct_fused_bound(x, nfft: int) -> tuple[float, str]:
+    """Kernel E's bound at (F, n) frames x: two transforms of nfft points
+    whose time side is real (the input, and the lags of a real even
+    spectrum): 2.5 nfft log2 nfft operations each, half a complex radix-2
+    transform's 5 nfft log2 nfft, and the power, 3 operations on each of
+    the nfft / 2 + 1 bins; it reads x once and writes (F, n/2 + 1) + (F, n)
+    values. It counts the function's work, not the kernel's."""
+    F, n = x.shape
+    isz = x.element_size()
+    ops = F * (2 * 2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1))
+    return bound(F * n * isz + F * (n // 2 + 1) * isz + F * n * isz, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
+def cufft_power_ac(x, nfft: int):
+    """Kernel E's function as torch.fft calls (cuFFT on the card): rfft,
+    power, irfft. The yardstick beside E (`library_ms`); the port never
+    calls it."""
+    import torch
+
+    spec = torch.fft.rfft(x, n=nfft, dim=-1)
+    power = spec.real.square() + spec.imag.square()
+    return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : x.shape[-1]]
+
+
 def kernel_bounds(cli: dict, bench: dict) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
@@ -783,14 +819,6 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
     ops_c = Fr * 20 * sum(24 * d + 60 for d in degs)
     bytes_c = Fr * N * 2 * 4 + Fr * (N - 1) * 2 * 4 + Fr * 8
     rf, _, ef, _ = cli["formant_scan"]
-    xe, nfft = bench["ct_fused"]
-    Fe, ne = xe.shape
-    # E: two transforms of nfft points whose time side is real (the input,
-    # and the lags of a real even spectrum): 2.5 nfft log2 nfft each, half
-    # a complex radix-2 transform's 5 nfft log2 nfft. The power is 3
-    # operations on each of the nfft / 2 + 1 bins.
-    ops_e = Fe * (2 * 2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1))
-    bytes_e = Fe * ne * 4 + Fe * (ne // 2 + 1) * 4 + Fe * ne * 4
     local = bench["viterbi"][0]
     Fv, Cv = local.shape
     # F: per frame C^2 costs (division, log2, |.|, product, difference and
@@ -802,7 +830,7 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
         "burg": bound(bytes_b, f64_ops / F64_OPS_S + f32_ops / F32_OPS_S),
         "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
         "formant_scan": formant_scan_bound(rf, ef.shape[0]),
-        "ct_fused": bound(bytes_e, ops_e / F32_OPS_S),
+        "ct_fused": ct_fused_bound(*bench["ct_fused"]),
         "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
         "pitch_pre": pitch_pre_bound(bench["pitch_pre"]),
         "polish": polish_bound(cli["polish"]),
@@ -1164,9 +1192,12 @@ def main() -> None:
     for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
-    d_frames = scan_stack_frames(build_log)
-    checks.true("formant_scan kernels: 0 bytes stack frame and spill", len(d_frames) == 4
-                and all(v == (0, 0, 0) for v in d_frames.values()), f"{sorted(d_frames.values())} over {len(d_frames)}")
+    # D: two kernels in two dtypes; E: one a frame length its gate admits
+    # (128-8192 in float32, 128-4096 in float64).
+    for name, count in (("formant_scan", 4), ("ct_fused", 13)):
+        frames = stack_frames(build_log, name)
+        checks.true(f"{name} kernels: 0 bytes stack frame and spill", len(frames) == count
+                    and all(v == (0, 0, 0) for v in frames.values()), f"{sorted(frames.values())} over {len(frames)}")
     kernels.library()
 
     # --- data: 126 tiles of the bundled recording
@@ -1242,6 +1273,7 @@ def main() -> None:
     path_errs["bench"], scan_runs["bench"] = check_path_kernels(
         "bench path", bframes64, bvcfg, {torch.float64: bout64, torch.float32: bout32}, checks)
     bench_args32 = bench_kernel_inputs(bframes64.float(), bout32, bvcfg)
+    e_inputs = {"bench": bench_args32["ct_fused"]}  # kernel E's (frames, nfft) on each path, float32
     del bframes64
     phase_took("phase 6, bench path and its kernels vs plain")
 
@@ -1289,6 +1321,7 @@ def main() -> None:
     expect_launches("for the corpus_viterbi block", corpus_v_launches)
     path_errs["corpus"], scan_runs["corpus"] = check_path_kernels(
         "corpus block", cfr64, bvcfg, {torch.float64: cout64, torch.float32: cout32}, checks, file_len=cfr64.shape[1])
+    e_inputs["corpus"] = (hann_windowed(cfr64.float().reshape(-1, bcfg.frame_len)).contiguous(), 2 * bcfg.frame_len)
     del cout64, cout32, cfr64
     phase_took("phase 7, corpus block and its kernels vs plain")
 
@@ -1309,6 +1342,7 @@ def main() -> None:
     check_health("flagship_viterbi path", fout32, checks)
     path_errs["flagship"], scan_runs["flagship"] = check_path_kernels(
         "flagship path", fframes64, fvcfg, {torch.float64: analyze(sig64, fvcfg), torch.float32: fout32}, checks)
+    e_inputs["flagship"] = (hann_windowed(fframes64.float()).contiguous(), 2 * fcfg.frame_len)
     del fframes64, fout32
     print("flagship_viterbi path parity: float64 on the card vs the plain CPU path, first 2 s:")
     compare_slice("flagship f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), fvcfg),
@@ -1449,11 +1483,6 @@ def main() -> None:
     xe, nfft = bench_args32["ct_fused"]
     lv, fv, vv, ojc, vuc = bench_args32["viterbi"]
 
-    def cufft_power_ac():
-        spec = torch.fft.rfft(xe, n=nfft, dim=-1)
-        power = spec.real.square() + spec.imag.square()
-        return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : xe.shape[-1]]
-
     timing = {
         "refine": (lambda: refine.refine(*args32["refine"]), lambda: refine.refine_plain(*args32["refine"]), F, None),
         "burg": (lambda: burg.burg(*args32["burg"]), lambda: burg.burg_plain(*args32["burg"]), F, None),
@@ -1462,7 +1491,7 @@ def main() -> None:
         "formant_scan": (lambda: formant_scan.formant_scan(rf, rb, ef, eb),
                          lambda: formant_scan.formant_scan_plain(rf[:prefix], rb[:prefix], ef, eb), prefix, None),
         "ct_fused": (lambda: ct_fused.ct_fused_power_ac(xe, nfft), lambda: ct_fused.ct_fused_power_ac_plain(xe, nfft),
-                     FB, cufft_power_ac),
+                     FB, lambda: cufft_power_ac(xe, nfft)),
         "viterbi": (lambda: viterbi.viterbi_path(lv, fv, vv, ojc, vuc),
                     lambda: viterbi.viterbi_path_plain(lv[:vprefix], fv[:vprefix], vv[:vprefix], ojc, vuc), vprefix, None),
         "pitch_pre": (lambda: pitch_pre.pitch_pre(*bench_args32["pitch_pre"]),
@@ -1522,6 +1551,31 @@ def main() -> None:
     d_row = next(r for r in rows if r["name"] == "formant_scan")
     d_row.update({k: d_paths["cli"][k] for k in ("chunks", "held_share", "frames_rerun")})
     d_row["by_path"] = d_paths
+    # E at each path's shapes beside its bound, its plain version and cuFFT;
+    # and in float64 at the bench shapes (its frames in float64).
+    e_paths = {}
+    for path, (x, nf) in e_inputs.items():
+        e_paths[path] = {
+            "ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x, nf)),
+            "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x, nf)),
+            "library_ms": event_ms(lambda: cufft_power_ac(x, nf)),
+            "bound_ms": ct_fused_bound(x, nf)[0], "bound_by": ct_fused_bound(x, nf)[1], "frames": x.shape[0],
+            "n": x.shape[1], "launches": launches_by_path[path]["ct_fused"],
+        }
+        v = e_paths[path]
+        print(f"  ct_fused, {PATHS[path]}: kernel {v['ms']:.3f} ms ({v['frames']} frames of {v['n']}), plain "
+              f"{v['plain_ms']:.3f} ms, cuFFT rfft-power-irfft {v['library_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+              f"by {v['bound_by']}, {v['launches']} launch(es) [{card}]")
+    x64 = xe.double()
+    e64 = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x64, nfft)),
+           "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x64, nfft)),
+           "bound_ms": ct_fused_bound(x64, nfft)[0], "frames": FB}
+    print(f"  ct_fused, bench path, float64: kernel {e64['ms']:.3f} ms, plain {e64['plain_ms']:.3f} ms, bound "
+          f"{e64['bound_ms']:.4f} ms [{card}]")
+    del x64
+    e_row = next(r for r in rows if r["name"] == "ct_fused")
+    e_row["by_path"] = e_paths
+    e_row["f64_bench"] = e64
 
     phase_took("phase 10, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")

@@ -8,7 +8,18 @@ test's: the half power spectrum rtol 1e-9 after dividing by its largest
 value (the matmul DFT and the FFT round differently near zero bins), the
 lags rtol 1e-9 / atol 1e-9. The shape gate is pinned case by case, as
 tests/test_large_frames.py::test_ct_fused_vmem_budget_gate pins voxtpu's.
+
+csrc/ct_fused.cu runs on the card only (chip_smoke.py holds it to the plain
+version at every path's shapes and every n the gate admits). Here
+`_model_ct_fused`, a NumPy model that follows the kernel's own steps (the
+packing, the radix plan and its digit order, the split, the power and the
+strided half, the inverse packing, the pruned last pass and the 1/N scale),
+is held to `ct_fused_power_ac_plain`: index and twiddle faults show up
+here before they cost time on the card.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,8 +29,11 @@ import jax.numpy as jnp
 import voxtpu.autocorr as jac
 from voxtpu.ops.ct_fused_pallas import ct_fused_power_ac as jax_ct_fused_power_ac
 
+from chip_smoke import CT_FUSED_F32_TOL
 from voxtpu_torch import autocorr
 from voxtpu_torch.ops import ct_fused, kernels, viterbi
+
+CU = Path(__file__).resolve().parent.parent / "voxtpu_torch" / "csrc" / "ct_fused.cu"
 
 SHAPES = [(128, 3), (1024, 11), (4096, 5)]
 
@@ -77,11 +91,11 @@ def test_autocorrelate_ct_fused_matches_jax(n, nc):
     (4096, 8192, torch.float32, True),
     (1024, 2048, torch.float64, True),
     (2048, 4096, torch.float64, True),
-    (4096, 8192, torch.float64, True),  # 128 KB of shared memory
+    (4096, 8192, torch.float64, True),  # float64's largest (MAX_N)
     (128, 256, torch.float64, True),  # the smallest frame
-    (8192, 16384, torch.float32, True),  # 128 KB
-    (8192, 16384, torch.float64, False),  # 256 KB > 227 KB
-    (16384, 32768, torch.float32, False),  # 256 KB
+    (8192, 16384, torch.float32, True),  # float32's largest (MAX_N)
+    (8192, 16384, torch.float64, False),  # above float64's largest
+    (16384, 32768, torch.float32, False),  # above float32's largest
     (64, 128, torch.float32, False),  # below 128
     (96, 192, torch.float64, False),  # not a power of two
     (1536, 3072, torch.float32, False),  # a multiple of 128, not a power of two
@@ -94,11 +108,38 @@ def test_shape_gate(n, nfft, dtype, ok):
 
 
 def test_shared_memory_sizer():
-    """Four n values per block (the 2n-point complex frame): 64 KB in float32
-    and 128 KB in float64 at the bench frame of 4096."""
-    assert ct_fused.ct_fused_smem_bytes(4096, torch.float32) == 65536
-    assert ct_fused.ct_fused_smem_bytes(4096, torch.float64) == 131072
+    """One exchange buffer of n complex values a frame: 32 KB in float32 and
+    64 KB in float64 at the bench frame of 4096; frames under 2048 points
+    share a block of 128 threads (16 frames of 128)."""
+    assert ct_fused.ct_fused_smem_bytes(4096, torch.float32) == 32768
+    assert ct_fused.ct_fused_smem_bytes(4096, torch.float64) == 65536
+    assert ct_fused.ct_fused_smem_bytes(8192, torch.float32) == 65536
+    assert ct_fused.ct_fused_smem_bytes(128, torch.float32) == 16 * 128 * 8
     assert ct_fused.SMEM_LIMIT == 227 * 1024
+
+
+@pytest.mark.parametrize("dtype, largest", [(torch.float32, 8192), (torch.float64, 4096)])
+def test_gate_admits_the_same_frame_lengths(dtype, largest):
+    """The gate admits exactly the frame lengths the radix-2 kernel took,
+    128 to 8192 in float32 and to 4096 in float64, and every block of them
+    fits the card's shared memory."""
+    admitted = [n for n in range(1, 1 << 16) if ct_fused.ct_fused_supported(n, 2 * n, dtype)]
+    assert admitted == [1 << k for k in range(7, largest.bit_length())]
+    assert all(ct_fused.ct_fused_smem_bytes(n, dtype) <= ct_fused.SMEM_LIMIT for n in admitted)
+
+
+def test_constants_mirror_the_cuda_source():
+    """The wrapper's points a thread, block floor and per-dtype ceilings are
+    csrc/ct_fused.cu's."""
+    src = CU.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kPoints") == ct_fused._POINTS
+    assert const("kMinBlockThreads") == ct_fused._MIN_BLOCK_THREADS
+    assert 1 << const("kMaxLog2F32") == ct_fused.MAX_N[torch.float32]
+    assert 1 << const("kMaxLog2F64") == ct_fused.MAX_N[torch.float64]
 
 
 @pytest.mark.parametrize("n", [96, 300, 2205])
@@ -152,3 +193,155 @@ def test_new_kernel_wrappers_raise_without_nvcc(monkeypatch, tmp_path):
         assert ct_fused.ct_fused_power_ac.launches == 0 and viterbi.viterbi_path.launches == 0
     finally:
         kernels.library.cache_clear()
+
+
+# --- _model_ct_fused: csrc/ct_fused.cu's steps in NumPy
+
+# cos and sin of 2 pi e / 16, e < 8: the radix-16 butterfly's constants
+# (rot16; e = 4 is the exact quarter turn).
+_COS16 = np.cos(2 * np.pi * np.arange(8) / 16)
+_COS16[4] = 0.0
+_SIN16 = np.sin(2 * np.pi * np.arange(8) / 16)
+
+
+def _radix_plan(n):
+    """The passes' radices (Plan::kPasses, kLast): 16s, the last 2^(log2 n mod 4)."""
+    L = n.bit_length() - 1
+    passes = -(-L // 4)
+    return [16] * (passes - 1) + [1 << (L - 4 * (passes - 1))]
+
+
+def _bitrev(i, bits):
+    return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _dft(v, inverse, zero_upper=False, half_out=False):
+    """dft(): the R-point DFT over the last axis, radix-2 decimation in time
+    over the bit-reversed copy; zero_upper: v[R/2:] is zero and not read;
+    half_out: only outputs 0 .. R/2 are formed."""
+    R = v.shape[-1]
+    bits = R.bit_length() - 1
+    u = v[..., [_bitrev(i, bits) for i in range(R)]].copy()
+    s = 1
+    if zero_upper:
+        u[..., 1::2] = u[..., 0::2]
+        s = 2
+    while s < R:
+        for i in range(R):
+            if i & s:
+                continue
+            e = (i & (s - 1)) * (8 // s)
+            b = u[..., i + s].copy()
+            if e:
+                b = b * np.asarray(_COS16[e] + (1j if inverse else -1j) * _SIN16[e], dtype=u.dtype)
+            if half_out and 2 * s == R:
+                u[..., i] = u[..., i] + b
+                continue
+            u[..., i + s] = u[..., i] - b
+            u[..., i] = u[..., i] + b
+        s *= 2
+    return u[..., : R // 2] if half_out else u
+
+
+def _stockham_pass(data, R, Ns, tw, inverse, zero_upper=False, half_out=False):
+    """exchange_pass(): butterflies j < n/R read data[j + r n/R]; for Ns > 1,
+    input r is turned by w^{r s}, s = (j mod Ns) N / (Ns R), from the table's
+    w^s, w^2s, w^4s, w^8s and their products (twiddle()); the R-point DFT;
+    output r lands at (j - j mod Ns) R + j mod Ns + r Ns."""
+    B, n = data.shape
+    span = n // R
+    j = np.arange(span)
+    v = data[:, j[:, None] + span * np.arange(R)[None, :]].copy()
+    jm = j % Ns
+    if Ns > 1:
+        s = jm * (2 * n // (Ns * R))
+        p = {}
+        for lb in range(R.bit_length() - 1):
+            w = tw[s << lb]
+            p[1 << lb] = np.conj(w) if inverse else w
+        for r in range(3, R):
+            hb = 1 << (r.bit_length() - 1)
+            if r != hb:
+                p[r] = p[hb] * p[r - hb]
+        for r in range(1, R):
+            v[..., r] = v[..., r] * p[r]
+    v = _dft(v, inverse, zero_upper, half_out)
+    out = np.zeros_like(data)
+    idx = (j - jm)[:, None] * R + jm[:, None] + Ns * np.arange(v.shape[-1])[None, :]
+    out[:, idx] = v
+    return out
+
+
+def _model_ct_fused(x):
+    """(B, n) real frames (float32 or float64, computed in that type) ->
+    (half (B, n/2+1), ac (B, n)), by the kernel's steps."""
+    B, n = x.shape
+    rdt = x.dtype.type
+    cdt = np.complex64 if rdt is np.float32 else np.complex128
+    ang = 2.0 * np.pi * np.arange(n) / (2 * n)
+    tw = (np.cos(ang).astype(rdt) + 1j * (-np.sin(ang)).astype(rdt)).astype(cdt)  # ops/ct_fused.py's table
+    plan = _radix_plan(n)
+    # Forward: z[m] = x[2m] + i x[2m+1], zero from n/2 on.
+    z = np.zeros((B, n), cdt)
+    z[:, : n // 2] = x[:, 0::2] + 1j * x[:, 1::2]
+    Ns = 1
+    for p, R in enumerate(plan):
+        z = _stockham_pass(z, R, Ns, tw, False, zero_upper=p == 0)
+        Ns *= R
+    # The split: P[k] = |E - U|^2 and P[n-k] = |E + U|^2 for each k.
+    k = np.arange(n)
+    A, Bc = z[:, k], np.conj(z[:, (n - k) % n])
+    E, O = (A + Bc) * rdt(0.5), (A - Bc) * rdt(0.5)
+    U = 1j * (tw * O)
+    d1, d2 = E - U, E + U
+    pk = d1.real * d1.real + d1.imag * d1.imag
+    pn = d2.real * d2.real + d2.imag * d2.imag
+    half = np.concatenate([pk[:, 0::2], pn[:, :1]], axis=1)  # P[2k], and P[n] from k = 0
+    # The inverse packing W[k] = (P[k] + P[n-k]) + i w^-k (P[k] - P[n-k]).
+    S, D = pk + pn, pk - pn
+    W = ((S + tw.imag * D) + 1j * (tw.real * D)).astype(cdt)
+    Ns = 1
+    for p, R in enumerate(plan):
+        W = _stockham_pass(W, R, Ns, tw, True, half_out=p == len(plan) - 1)
+        Ns *= R
+    w = W[:, : n // 2] * rdt(1.0 / (2 * n))
+    return half, np.stack([w.real, w.imag], axis=-1).reshape(B, n)
+
+
+def _frame_scaled_err(got, want):
+    """max |got - want| over each frame's largest |want|."""
+    return float((np.abs(got - want) / np.abs(want).max(axis=-1, keepdims=True)).max())
+
+
+def test_radix_plan():
+    """16 16 16 at the bench frame, 16 16 8 at the flagship's, as
+    csrc/ct_fused.cu's header states."""
+    assert _radix_plan(4096) == [16, 16, 16]
+    assert _radix_plan(2048) == [16, 16, 8]
+    assert _radix_plan(8192) == [16, 16, 16, 2]
+    assert _radix_plan(128) == [16, 8]
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(7, 14)])
+def test_kernel_model_matches_plain_f64(n):
+    """Float64, at every n the gate admits in either dtype: within 1e-12 of
+    each frame's largest value."""
+    x = _frames(n, 3, seed=5)
+    half, ac = _model_ct_fused(x)
+    hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
+    assert half.shape == hp.shape and ac.shape == ap.shape
+    assert _frame_scaled_err(half, hp.numpy()) <= 1e-12
+    assert _frame_scaled_err(ac, ap.numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_kernel_model_matches_plain_f32(n):
+    """Float32 arithmetic throughout, at the flagship and bench frames:
+    within CT_FUSED_F32_TOL of each frame's largest value, the card's
+    tolerance for the kernel."""
+    x = _frames(n, 4, seed=9).astype(np.float32)
+    half, ac = _model_ct_fused(x)
+    assert half.dtype == np.float32 and ac.dtype == np.float32
+    hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
+    assert _frame_scaled_err(half, hp.numpy()) <= CT_FUSED_F32_TOL
+    assert _frame_scaled_err(ac, ap.numpy()) <= CT_FUSED_F32_TOL

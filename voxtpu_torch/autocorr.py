@@ -11,7 +11,7 @@ Backends:
 - "ct_fused": kernel E (voxtpu_torch.ops.ct_fused) computes the power
   spectrum and the lags in one pass. It is what `backend=None` picks when
   the shape passes `ct_fused_supported` (nfft == 2n, n a power of two
-  >= 128, the block's shared memory fits), as voxtpu picks it on a TPU; for
+  >= 128, up to `MAX_N`), as voxtpu picks it on a TPU; for
   CPU tensors the kernel's plain version runs.
 - "fft": torch.fft (rfft -> |.|^2 -> irfft). Every other shape takes it, by
   the gate alone and before any launch; an explicit "ct_fused" request for

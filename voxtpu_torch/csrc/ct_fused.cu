@@ -1,6 +1,5 @@
 // Kernel E: the n-point half power spectrum and the first n lags of
-// irfft(|rfft(x, 2n)|^2) of (B, n) real frames in one pass, one thread block
-// per frame.
+// irfft(|rfft(x, 2n)|^2) of (B, n) real frames in one pass.
 //
 // Replaces voxtpu/ops/ct_fused_pallas.py::ct_fused_power_ac (pallas_call at
 // ct_fused_pallas.py:222). Semantics are those of its plain version
@@ -13,125 +12,354 @@
 // What bounds it: at the bench path's shapes (15,369 frames of 4096, float32)
 // the kernel must read 252 MB and write 378 MB: about 0.19 ms of device
 // memory at 3.35 TB/s, against about 8 GFLOP, 0.12 ms at 67 TFLOP/s. So
-// device memory sets the bound. This first kernel is bound elsewhere: each
-// of its 2 log2(N) radix-2 stages reads and writes the whole N-point frame in
-// shared memory, with a block barrier between stages, so shared-memory
-// traffic and barrier latency set its time.
+// device memory sets the bound. The radix-2 kernel this one replaced ran 26
+// barrier-separated passes over a 2n-point complex frame in shared memory
+// (64 KB a block in float32) and took 7.254 ms there on an H100: barriers
+// and shared-memory traffic set its time.
 //
-// Design: the frame, zero-padded to N complex values, lives in dynamic
-// shared memory as separate real and imaginary arrays (4 n values: 64 KB in
-// float32, 128 KB in float64 at n = 4096). The forward transform is
-// decimation in frequency (natural order in, bit-reversed order out) and
-// its first stage is fused with the load, since the upper half of the input
-// is zero. |X|^2 replaces X in place, still bit-reversed; the even bins go
-// to `half`. The inverse is decimation in time (bit-reversed in, natural
-// out), so no permutation pass is needed, and its last stage writes only
-// the n lags asked for. Twiddles w^k = e^{-2 pi i k / N}, k < n, are built
-// on the host in float64 and cast (voxtpu_torch/ops/ct_fused.py); they are
-// read through the read-only cache. The TPU kernel's four-step matmul
-// factorisation, its pre-interleaved input, its 0/1 selection matmul for the
-// even bins and its transposed inverse tables were Mosaic workarounds and
-// are gone.
+// Design: the real input is packed into half as many complex points and
+// every transform is n points, in registers.
+// - Forward: z[m] = x[2m] + i x[2m+1] for m < n/2, and 0 above (the zero
+//   padding, which the first pass never loads). One n-point complex FFT
+//   gives Z; the split X[k] = E - U, X[n-k] = conj(E + U), with
+//   E = (Z[k] + conj Z[n-k]) / 2, U = i w^k (Z[k] - conj Z[n-k]) / 2,
+//   w = e^{-2 pi i / N}, gives P[k] = |X[k]|^2 for k = 0 .. n in natural
+//   order; half[k] = P[2k] is a strided pick.
+// - Inverse: P is real and even, so W[k] = (P[k] + P[n-k]) + i w^{-k} (P[k]
+//   - P[n-k]) packs the N-point inverse into one n-point inverse FFT, whose
+//   output m holds ac[2m] + i ac[2m+1] times N. Only m < n/2 is needed, so
+//   the last pass computes and stores those outputs alone. One thread
+//   handles k and n-k together, so the split and the packing are one
+//   exchange through shared memory, fused with the inverse's first pass.
+// - Each transform is a self-sorting (Stockham) FFT of radix-16 passes,
+//   the last of radix 2^(log2 n mod 4) where log2 n is not a multiple of 4
+//   (n = 4096: 16 16 16; 2048: 16 16 8; 8192: 16 16 16 2). Each thread holds
+//   kPoints = 16 complex values and does a whole radix-16 butterfly (or
+//   16/R radix-R ones) in registers, its internal twiddles constants; threads
+//   exchange through shared memory only between passes. A frame's exchange
+//   buffer is n complex values (32 KB in float32, 64 KB in float64 at
+//   n = 4096), XOR-swizzled so that a warp's stride-16 stores spread over
+//   the banks. Frames of fewer than 2048 points share a block, up to
+//   kMinBlockThreads threads.
+// - Barriers a frame: 4P - 3 for P passes a transform: 9 at n = 512 .. 4096,
+//   5 at 128 and 256, 13 at 8192 (the radix-2 kernel: 27 at n = 4096).
+// - Twiddles: the host's table of w^k = cos - i sin of 2 pi k / N, k < n,
+//   built in float64 and cast, interleaved (ops/ct_fused.py). A pass of
+//   radix R over spans of Ns reads w^{s}, w^{2s}, w^{4s}, w^{8s} (s = (j mod
+//   Ns) N / (Ns R) for butterfly j) and forms the others with at most three
+//   products; the split reads w^k for its k. No __sincosf.
+// - Memory: x is read as (x[2m], x[2m+1]) pairs, 8 bytes a thread in float32
+//   and 16 in float64, and ac is stored the same way: a warp reads and
+//   writes whole contiguous segments (256 bytes in float32), each byte once.
+//   A 16-byte load in float32 would give a thread two neighbouring pairs,
+//   which the first pass hands to two different butterflies. half rows
+//   ((n/2 + 1) values) are not 16-byte aligned; they are stored as scalars.
+// Built --fmad=false like the rest of the library: held to a tolerance
+// against the plain version, not to bits. tests/test_torch_ct_fused.py's
+// _model_ct_fused follows these steps in NumPy.
+//
+// Registers a thread (ptxas -v for sm_90a, as chip_smoke.py's build prints
+// them), by n = 128 .. 8192: float32 104 114 128 128 128 127 119 (capped at
+// 128, see Plan::kMinBlocks), float64 192 188 200 212 216 194; 0 bytes of
+// stack frame and spill in all 13. Shared memory: none static; dynamic, a
+// block's frames times n complex values: 16 KB in float32 and 32 KB in
+// float64 for n <= 2048 (128 threads: 16 frames of 128 .. 1 of 2048), 32 KB
+// and 64 KB at n = 4096 (256 threads), 64 KB at 8192 (512 threads). At the
+// bench frame that is 2 blocks an SM in float32 (registers bind; 4 would
+// need at most 64 a thread), 1 in float64. At bench shapes it takes
+// 0.552 ms in float32, 2.9 times its bound (chip_smoke.py, NVIDIA H100
+// 80GB HBM3, 700 W).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can have
+constexpr int kPoints = 16;            // complex values a thread holds
+constexpr int kMinBlockThreads = 128;  // small frames share a block up to this
+constexpr int kMaxLog2F32 = 13;        // n <= 8192 in float32
+constexpr int kMaxLog2F64 = 12;        // n <= 4096 in float64
 
 template <typename T>
-__global__ void ct_fused_kernel(const T* __restrict__ x, const T* __restrict__ tw,
-                                T* __restrict__ half, T* __restrict__ ac, int n, int log2N) {
+struct Vec2;
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+
+template <typename T>
+struct Cx {
+  T re, im;
+};
+
+template <typename T>
+__device__ __forceinline__ Cx<T> cadd(Cx<T> a, Cx<T> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+
+template <typename T>
+__device__ __forceinline__ Cx<T> csub(Cx<T> a, Cx<T> b) {
+  return {a.re - b.re, a.im - b.im};
+}
+
+template <typename T>
+__device__ __forceinline__ Cx<T> cmul(Cx<T> a, Cx<T> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+
+// b * e^{-+2 pi i e / 16} (the conjugate root for the inverse), e in [0, 8).
+template <typename T, bool kInv>
+__device__ __forceinline__ Cx<T> rot16(Cx<T> b, int e) {
+  if (e == 0) return b;
+  if (e == 4) return kInv ? Cx<T>{-b.im, b.re} : Cx<T>{b.im, -b.re};
+  constexpr double C1 = 0.92387953251128675613, C2 = 0.70710678118654752440, C3 = 0.38268343236508977173;
+  const double c = e == 1 ? C1 : e == 2 ? C2 : e == 3 ? C3 : e == 5 ? -C3 : e == 6 ? -C2 : -C1;
+  const double s = (e == 1 || e == 7) ? C3 : (e == 2 || e == 6) ? C2 : C1;
+  return cmul(b, Cx<T>{T(c), kInv ? T(s) : T(-s)});
+}
+
+template <int R>
+__device__ __forceinline__ constexpr int bitrev(int i) {
+  int r = 0;
+  for (int b = 1; b < R; b <<= 1, i >>= 1) r = (r << 1) | (i & 1);
+  return r;
+}
+
+template <int R>
+__device__ __forceinline__ constexpr int log2_of() {
+  return R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+}
+
+// The R-point DFT of v[0 .. R) in registers, natural order in and out:
+// radix-2 decimation in time over the bit-reversed copy. kZeroUpper: v[R/2
+// .. R) are zero and not read. kHalfOut: only outputs 0 .. R/2 are formed.
+template <typename T, int R, bool kInv, bool kZeroUpper, bool kHalfOut>
+__device__ __forceinline__ void dft(Cx<T>* v) {
+  Cx<T> u[R];
+  if (kZeroUpper) {
+#pragma unroll
+    for (int i = 0; i < R; i += 2) u[i] = u[i + 1] = v[bitrev<R>(i)];
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) u[i] = v[bitrev<R>(i)];
+  }
+#pragma unroll
+  for (int st = kZeroUpper ? 1 : 0; st < log2_of<R>(); ++st) {
+    const int s = 1 << st;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i & s) continue;
+      const Cx<T> b = rot16<T, kInv>(u[i + s], (i & (s - 1)) * (8 >> st));
+      if (kHalfOut && 2 * s == R) {
+        u[i] = cadd(u[i], b);
+        continue;
+      }
+      u[i + s] = csub(u[i], b);
+      u[i] = cadd(u[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < (kHalfOut ? R / 2 : R); ++i) v[i] = u[i];
+}
+
+// v[r] *= w_N^{r s} for r = 1 .. R-1 (conjugated for the inverse): w^{s},
+// w^{2s}, w^{4s} and w^{8s} from the table, the others as products of those.
+template <typename T, int R, bool kInv>
+__device__ __forceinline__ void twiddle(Cx<T>* v, const typename Vec2<T>::type* tw, int s) {
+  Cx<T> p[R];
+#pragma unroll
+  for (int lb = 0; lb < log2_of<R>(); ++lb) {
+    const auto w = __ldg(tw + (s << lb));
+    p[1 << lb] = {w.x, kInv ? -w.y : w.y};
+  }
+#pragma unroll
+  for (int r = 3; r < R; ++r) {
+    const int hb = r >= 8 ? 8 : r >= 4 ? 4 : 2;
+    if (r != hb) p[r] = cmul(p[hb], p[r - hb]);
+  }
+#pragma unroll
+  for (int r = 1; r < R; ++r) v[r] = cmul(v[r], p[r]);
+}
+
+// Shared-memory index of complex value e of a frame: bits 0-3 XOR bits 4-7.
+__device__ __forceinline__ int sw(int e) { return e ^ ((e >> 4) & 15); }
+
+template <typename T>
+__device__ __forceinline__ typename Vec2<T>::type pack(Cx<T> a) {
+  return {a.re, a.im};
+}
+
+// One Stockham pass of radix R over spans of Ns (Ns > 1) through the
+// frame's buffer: butterflies j = t + q n/16 read buf[j + r n/R] and write
+// buf[(j - j mod Ns) R + j mod Ns + r Ns].
+template <typename T, int R, bool kInv>
+__device__ __forceinline__ void exchange_pass(Cx<T>* v, typename Vec2<T>::type* buf,
+                                              const typename Vec2<T>::type* tw, int t, int Ns, int n) {
+  constexpr int G = kPoints / R;
+  const int ft = n / kPoints, span = n / R;
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const auto a = buf[sw(t + q * ft + r * span)];
+      v[q * R + r] = {a.x, a.y};
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const int j = t + q * ft, jm = j & (Ns - 1);
+    twiddle<T, R, kInv>(v + q * R, tw, jm * (2 * n / (Ns * R)));
+    dft<T, R, kInv, false, false>(v + q * R);
+    const int base = (j - jm) * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[sw(base + r * Ns)] = pack(v[q * R + r]);
+  }
+  __syncthreads();
+}
+
+template <typename T, int L>
+struct Plan {
+  static constexpr int n = 1 << L;
+  static constexpr int kPasses = (L + 3) / 4;
+  static constexpr int kLast = 1 << (L - 4 * (kPasses - 1));  // the last pass's radix
+  static constexpr int kFrameThreads = n / kPoints;
+  static constexpr int kFrames = kFrameThreads >= kMinBlockThreads ? 1 : kMinBlockThreads / kFrameThreads;
+  static constexpr int kThreads = kFrames * kFrameThreads;
+  // Blocks an SM must hold: float32 at most 128 registers a thread (two
+  // blocks of the bench frame's 256 threads an SM, not one); float64 keeps
+  // up to 255, which it needs to hold its 16 values without a spill.
+  static constexpr int kMinBlocks = sizeof(T) == 4 && kThreads <= 256 ? 512 / kThreads : 1;
+};
+
+template <typename T, int L>
+__global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
+    ct_fused_kernel(const T* __restrict__ x, const T* __restrict__ tw_raw, T* __restrict__ half,
+                    T* __restrict__ ac, int B) {
+  using P = Plan<T, L>;
+  using V = typename Vec2<T>::type;
+  constexpr int n = P::n, ft = P::kFrameThreads, span16 = n / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int N = 2 * n;
-  T* re = reinterpret_cast<T*>(smem_raw);
-  T* im = re + N;
-  const T* tw_re = tw;
-  const T* tw_im = tw + n;
-  const T* xr = x + static_cast<long>(blockIdx.x) * n;
+  const int t = threadIdx.x % ft;
+  const long frame = static_cast<long>(blockIdx.x) * P::kFrames + threadIdx.x / ft;
+  const bool live = frame < B;
+  V* buf = reinterpret_cast<V*>(smem_raw) + (threadIdx.x / ft) * n;
+  const V* tw = reinterpret_cast<const V*>(tw_raw);
+  Cx<T> v[kPoints];
 
-  // Forward, decimation in frequency. The first stage (span n) with
-  // a[i + n] = 0: a[i] = x[i], a[i + n] = x[i] w^i.
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T v = xr[i];
-    re[i] = v;
-    im[i] = T(0);
-    re[i + n] = v * __ldg(tw_re + i);
-    im[i + n] = v * __ldg(tw_im + i);
+  // Forward pass 0 (radix 16, spans of 1): butterfly t takes z[t + r n/16],
+  // r < 8 from x; r >= 8 is the zero padding.
+  const V* z = reinterpret_cast<const V*>(x + frame * n);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const V a = live ? __ldg(z + t + r * span16) : V{T(0), T(0)};
+    v[r] = {a.x, a.y};
   }
+  dft<T, 16, false, true, false>(v);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) buf[sw(16 * t + r)] = pack(v[r]);
   __syncthreads();
-  for (int s = n >> 1; s >= 1; s >>= 1) {
-    const int stride = n / s;  // twiddle of a 2s-point sub-transform: w^(j N / 2s)
-    for (int b = threadIdx.x; b < n; b += blockDim.x) {
-      const int j = b & (s - 1);
-      const int i = ((b - j) << 1) + j;
-      const T ur = re[i], ui = im[i], vr = re[i + s], vi = im[i + s];
-      const T dr = ur - vr, di = ui - vi;
-      const T wr = __ldg(tw_re + j * stride), wi = __ldg(tw_im + j * stride);
-      re[i] = ur + vr;
-      im[i] = ui + vi;
-      re[i + s] = dr * wr - di * wi;
-      im[i + s] = dr * wi + di * wr;
+  int Ns = 16;
+#pragma unroll 1
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, false>(v, buf, tw, t, Ns, n);
+  exchange_pass<T, P::kLast, false>(v, buf, tw, t, Ns, n);
+
+  // The split, the power and the inverse packing, fused with the inverse's
+  // pass 0: the thread reads Z[k] and Z[n-k] for its k = t + r n/16 and
+  // forms W[k] from P[k] and P[n-k].
+  T* hr = half + frame * (n / 2 + 1);
+  const bool even = live && (t & 1) == 0;  // k = t + r n/16 is even with t
+  T p_n = T(0);                            // P[n], from k = 0 of thread 0
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int k = t + r * span16;
+    const V a = buf[sw(k)], bz = buf[sw((n - k) & (n - 1))];
+    const V w = __ldg(tw + k);
+    const T er = (a.x + bz.x) * T(0.5), ei = (a.y - bz.y) * T(0.5);
+    const T o_r = (a.x - bz.x) * T(0.5), o_i = (a.y + bz.y) * T(0.5);
+    const T wo_r = w.x * o_r - w.y * o_i, wo_i = w.x * o_i + w.y * o_r;
+    const T ur = -wo_i, ui = wo_r;  // U = i w^k O
+    const T d1r = er - ur, d1i = ei - ui, d2r = er + ur, d2i = ei + ui;
+    const T pk = d1r * d1r + d1i * d1i;  // P[k]
+    const T pn = d2r * d2r + d2i * d2i;  // P[n-k]
+    if (even) hr[k >> 1] = pk;
+    if (r == 0) p_n = pn;
+    const T s = pk + pn, d = pk - pn;
+    v[r] = {s + w.y * d, w.x * d};
+  }
+  if (live && t == 0) hr[n / 2] = p_n;
+  __syncthreads();
+  dft<T, 16, true, false, false>(v);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) buf[sw(16 * t + r)] = pack(v[r]);
+  __syncthreads();
+  Ns = 16;
+#pragma unroll 1
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, true>(v, buf, tw, t, Ns, n);
+
+  // The inverse's last pass (spans of n/R, so j < Ns): outputs m = j + r n/R
+  // for r < R/2 only, i.e. m < n/2, stored as ac[2m], ac[2m+1] over N.
+  constexpr int R = P::kLast, G = kPoints / R, span = n / R;
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const V a = buf[sw(t + q * ft + r * span)];
+      v[q * R + r] = {a.x, a.y};
     }
-    __syncthreads();
   }
+  if (!live) return;  // no barrier follows
+  const T inv_N = T(1) / static_cast<T>(2 * n);
+  V* ar = reinterpret_cast<V*>(ac + frame * n);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const int j = t + q * ft;
+    twiddle<T, R, true>(v + q * R, tw, 2 * j);
+    dft<T, R, true, false, true>(v + q * R);
+#pragma unroll
+    for (int r = 0; r < R / 2; ++r) ar[j + r * span] = V{v[q * R + r].re * inv_N, v[q * R + r].im * inv_N};
+  }
+}
 
-  // Power, in place and in bit-reversed order.
-  for (int p = threadIdx.x; p < N; p += blockDim.x) {
-    const T a = re[p], b = im[p];
-    re[p] = a * a + b * b;
-    im[p] = T(0);
+template <typename T, int L>
+int launch_plan(const void* x, const void* tw, void* half, void* ac, int B, cudaStream_t stream) {
+  using P = Plan<T, L>;
+  const size_t smem = static_cast<size_t>(P::kFrames) * P::n * sizeof(typename Vec2<T>::type);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(ct_fused_kernel<T, L>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  __syncthreads();
-  // The n-point half spectrum: X_n[k] == X_N[2k], which sits at bitrev(2k).
-  T* hr = half + static_cast<long>(blockIdx.x) * (n / 2 + 1);
-  for (int k = threadIdx.x; k <= n / 2; k += blockDim.x) {
-    hr[k] = re[__brev(static_cast<unsigned>(2 * k)) >> (32 - log2N)];
-  }
-  __syncthreads();
-
-  // Inverse, decimation in time with the conjugate twiddles: spans 1 .. n/2
-  // here, the last (span n) fused with the store of lags 0 .. n-1.
-  for (int s = 1; s < n; s <<= 1) {
-    const int stride = n / s;
-    for (int b = threadIdx.x; b < n; b += blockDim.x) {
-      const int j = b & (s - 1);
-      const int i = ((b - j) << 1) + j;
-      const T wr = __ldg(tw_re + j * stride), wi = __ldg(tw_im + j * stride);
-      const T ur = re[i], ui = im[i], xr2 = re[i + s], xi2 = im[i + s];
-      const T vr = xr2 * wr + xi2 * wi;  // (xr2 + i xi2) * conj(w)
-      const T vi = xi2 * wr - xr2 * wi;
-      re[i] = ur + vr;
-      im[i] = ui + vi;
-      re[i + s] = ur - vr;
-      im[i + s] = ui - vi;
-    }
-    __syncthreads();
-  }
-  const T inv_N = T(1) / static_cast<T>(N);
-  T* ar = ac + static_cast<long>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T vr = re[i + n] * __ldg(tw_re + i) + im[i + n] * __ldg(tw_im + i);
-    ar[i] = (re[i] + vr) * inv_N;
-  }
+  const int blocks = (B + P::kFrames - 1) / P::kFrames;
+  ct_fused_kernel<T, L><<<blocks, P::kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(tw), static_cast<T*>(half), static_cast<T*>(ac), B);
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
 int launch(const void* x, const void* tw, void* half, void* ac, int B, int n, void* stream) {
-  if (n < 128 || (n & (n - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 4 * static_cast<size_t>(n) * sizeof(T);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  int log2N = 1;
-  while ((1 << log2N) < 2 * n) ++log2N;
+  constexpr int max_log2 = sizeof(T) == 4 ? kMaxLog2F32 : kMaxLog2F64;
+  if (n < 128 || n > (1 << max_log2) || (n & (n - 1)) != 0 || B < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B > 0) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          ct_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+    const auto s = static_cast<cudaStream_t>(stream);
+    int err = 0;
+    switch (__builtin_ctz(static_cast<unsigned>(n))) {
+      case 7: err = launch_plan<T, 7>(x, tw, half, ac, B, s); break;
+      case 8: err = launch_plan<T, 8>(x, tw, half, ac, B, s); break;
+      case 9: err = launch_plan<T, 9>(x, tw, half, ac, B, s); break;
+      case 10: err = launch_plan<T, 10>(x, tw, half, ac, B, s); break;
+      case 11: err = launch_plan<T, 11>(x, tw, half, ac, B, s); break;
+      case 12: err = launch_plan<T, 12>(x, tw, half, ac, B, s); break;
+      default:
+        if constexpr (sizeof(T) == 4) err = launch_plan<T, 13>(x, tw, half, ac, B, s);
+        break;
     }
-    ct_fused_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(tw), static_cast<T*>(half),
-        static_cast<T*>(ac), n, log2N);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,11 @@ power-of-two frames in one pass (csrc/ct_fused.cu; replaces
 voxtpu/ops/ct_fused_pallas.py's `ct_fused_power_ac`).
 
 `ct_fused_power_ac_plain` is the PyTorch version: rfft to 2n points, power,
-irfft. `ct_fused_power_ac` runs it for CPU tensors and launches the kernel,
-one thread block per frame, for CUDA tensors. `ct_fused_supported` is the
-shape gate: which shapes the kernel takes follows from (n, nfft, dtype)
-alone, never from a failed launch.
+irfft. `ct_fused_power_ac` runs it for CPU tensors and launches the kernel
+for CUDA tensors: the real frame packed into n/2 complex points, two
+n-point transforms of radix-16 passes in registers, 16 complex values a
+thread. `ct_fused_supported` is the shape gate: which shapes the kernel
+takes follows from (n, nfft, dtype) alone, never from a failed launch.
 """
 
 from __future__ import annotations
@@ -18,31 +19,31 @@ import torch
 
 from voxtpu_torch.ops import kernels
 
-__all__ = ["SMEM_LIMIT", "ct_fused_smem_bytes", "ct_fused_supported", "ct_fused_power_ac_plain",
+__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_smem_bytes", "ct_fused_supported", "ct_fused_power_ac_plain",
            "ct_fused_power_ac"]
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB)
+# The largest frame the kernel takes, per dtype (csrc/ct_fused.cu's
+# kMaxLog2F32 and kMaxLog2F64). Fixed, so that which frames take the kernel
+# and which take cuFFT does not depend on the kernel's shared-memory use.
+MAX_N = {torch.float32: 8192, torch.float64: 4096}
+_POINTS = 16  # complex values a thread holds (csrc/ct_fused.cu's kPoints)
+_MIN_BLOCK_THREADS = 128  # frames of fewer than 2048 points share a block up to this (kMinBlockThreads)
 
 
 def ct_fused_smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: the frame zero-padded to 2n
-    complex values, real and imaginary parts apart (csrc/ct_fused.cu)."""
+    """Dynamic shared memory of one block: each of its frames' exchange
+    buffer of n complex values (csrc/ct_fused.cu)."""
     itemsize = 8 if dtype == torch.float64 else 4
-    return 4 * int(n) * itemsize
+    frames = max(1, _MIN_BLOCK_THREADS // (int(n) // _POINTS))
+    return frames * int(n) * 2 * itemsize
 
 
 def ct_fused_supported(n: int, nfft: int, dtype: torch.dtype) -> bool:
-    """The kernel takes nfft == 2n, n a power of two >= 128, float32 or
-    float64, while a block's shared memory fits: n <= 8192 in float32,
-    n <= 4096 in float64."""
+    """The kernel takes nfft == 2n, n a power of two from 128 to MAX_N
+    (8192 in float32, 4096 in float64)."""
     n, nfft = int(n), int(nfft)
-    return (
-        dtype in (torch.float32, torch.float64)
-        and nfft == 2 * n
-        and n >= 128
-        and n & (n - 1) == 0
-        and ct_fused_smem_bytes(n, dtype) <= SMEM_LIMIT
-    )
+    return dtype in MAX_N and nfft == 2 * n and 128 <= n <= MAX_N[dtype] and n & (n - 1) == 0
 
 
 def ct_fused_power_ac_plain(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -58,9 +59,10 @@ def ct_fused_power_ac_plain(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, t
 
 @functools.lru_cache(maxsize=16)
 def _twiddles(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """(2, n): cos and -sin of 2 pi k / 2n, k < n, built in float64."""
+    """(n, 2): cos and -sin of 2 pi k / 2n, k < n, built in float64, one
+    (re, im) pair a row."""
     ang = 2.0 * np.pi * np.arange(n) / (2 * n)
-    return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)]), dtype=dtype, device=device)
+    return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=-1), dtype=dtype, device=device)
 
 
 def ct_fused_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -75,6 +77,8 @@ def ct_fused_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.T
         raise ValueError(f"ct_fused_power_ac: x (B, n) on the card, got {tuple(x.shape)}")
     B, n = x.shape
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads (x[2m], x[2m+1]) pairs as one vector
+        x = x.clone()
     half = torch.empty((B, n // 2 + 1), dtype=x.dtype, device=x.device)
     ac = torch.empty((B, n), dtype=x.dtype, device=x.device)
     kernels.launch("vt_ct_fused", x.dtype, x, _twiddles(n, x.dtype, x.device), half, ac, B, n)
