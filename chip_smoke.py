@@ -11,16 +11,19 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; kernel D's and kernel E's kernels must show
+   compiler's register report; kernel A's, D's and E's kernels must show
    0 bytes of stack frame and spill;
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
    two-vowels recording: 35,689 frames of 2205 samples), in float64 and
-   float32; G bit-exact, a row with a NaN lag included; P bit-exact on
-   kernel C's roots and on `polish_edge_cases` (zero, NaN and infinite
-   root slots, polynomials whose Newton step is not finite, -0.0
-   coefficients), as on every path below; D bit-exact against the plain
+   float32; A also bit for bit on its first 64 rows alone and on all rows
+   in reverse order against the full call, and its stats (evaluations,
+   tap-sides, most Brent iterations) within 0.5% of the plain version's
+   evaluations, as on every path below; G bit-exact, a row with a NaN lag
+   included; P bit-exact on kernel C's roots and on `polish_edge_cases`
+   (zero, NaN and infinite root slots, polynomials whose Newton step is
+   not finite, -0.0 coefficients), as on every path below; D bit-exact against the plain
    scan on CPU copies of 4,096 frames, and over every frame of the path by
    `formant_scan_check` (one batched plain step from each output to the
    next), as on every path below; then (3b) D on `scan_stress_cases`, its
@@ -71,9 +74,11 @@ checkout. Phases, each an uncaught exception when it fails:
    counted run launched it (P not at all before it; a trace that does not
    is taken again, at most PROFILE_TRACES in all), and the CLI path's at
    most 1,000 device activities. Then each kernel against its plain
-   version, with its bound and, for E, the cuFFT library time; G also at
-   the CLI path's shapes; D at every path's shapes with its chunks, the
-   share whose speculation held and the frames re-run in repair; E at the
+   version, with its bound and, for E, the cuFFT library time; A at the
+   CLI, bench and flagship shapes and in float64 at the CLI shapes, each
+   with its stats and its bound from them; G also at the CLI path's
+   shapes; D at every path's shapes with its chunks, the share whose
+   speculation held and the frames re-run in repair; E at the
    bench, corpus-block and flagship shapes beside its bound and cuFFT, and
    in float64 at the bench shapes beside its plain version.
 
@@ -264,6 +269,19 @@ def pitch_pre_inputs(frames, cfg):
     return windowed, (autocorrelate(windowed, n), hl, n // 2, cfg.sample_rate, cfg.pitch.fmin, cfg.pitch.fmax)
 
 
+def refine_inputs(windowed, pre_args, cfg) -> tuple:
+    """Kernel A's arguments as the path's Brent refine passes them, from the
+    Hann-windowed frames and kernel G's arguments (`pitch_pre_inputs`):
+    (lag rows, starts, valid, offset, depth, tap bound)."""
+    from voxtpu_torch.pitch import REFINE_SINC_DEPTH, lag_candidates
+    from voxtpu_torch.sinc import _max_effective_depth
+
+    p = cfg.pitch
+    lc = lag_candidates(windowed, cfg.sample_rate, p.fmin, p.fmax, p.max_candidates, precomputed_ac=pre_args[0])
+    T = _max_effective_depth(lc.offset, lc.nx, REFINE_SINC_DEPTH, lc.max_x + 1.0)
+    return (lc.self_lag, lc.pos, lc.valid, lc.offset, REFINE_SINC_DEPTH, T)
+
+
 def kernel_inputs(frames, cfg):
     """Each kernel's arguments at the slice's shapes, computed by the port's
     own stages from (F, n) raw frames; kernel P's are the reversed monic
@@ -273,14 +291,10 @@ def kernel_inputs(frames, cfg):
     from voxtpu_torch.formants import formant_candidates
     from voxtpu_torch.ops.burg import burg
     from voxtpu_torch.ops.find_roots import find_roots
-    from voxtpu_torch.pitch import REFINE_SINC_DEPTH, lag_candidates
-    from voxtpu_torch.sinc import _max_effective_depth
 
-    p, f = cfg.pitch, cfg.formant
+    f = cfg.formant
     windowed, pre_args = pitch_pre_inputs(frames, cfg)
-    lc = lag_candidates(windowed, cfg.sample_rate, p.fmin, p.fmax, p.max_candidates, precomputed_ac=pre_args[0])
-    T = _max_effective_depth(lc.offset, lc.nx, REFINE_SINC_DEPTH, lc.max_x + 1.0)
-    refine_args = (lc.self_lag, lc.pos, lc.valid, lc.offset, REFINE_SINC_DEPTH, T)
+    refine_args = refine_inputs(windowed, pre_args, cfg)
     burg_args = (windowed.contiguous(), f.n_coeffs)
     coeffs, _ = burg(*burg_args)
     poly_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
@@ -291,7 +305,7 @@ def kernel_inputs(frames, cfg):
     est_f = torch.as_tensor(f.estimates, dtype=frames.dtype, device=frames.device)
     scan_args = (rfreq, rbw, est_f, torch.full_like(est_f, f.estimate_bandwidth))
     return {"refine": refine_args, "burg": burg_args, "find_roots": roots_args, "formant_scan": scan_args,
-            "pitch_pre": pre_args, "polish": polish_args}, lc.valid
+            "pitch_pre": pre_args, "polish": polish_args}, refine_args[2]
 
 
 def check_pitch_pre(args, checks: Checks, tag: str) -> float:
@@ -380,8 +394,9 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     """Kernels G, A-D and P against their plain versions on the same inputs,
     for one dtype, at the shapes of (F, n) frames. file_len: the frames are
     F / file_len recordings of file_len frames each, as the corpus block
-    hands them to kernel D. Returns {kernel: max_abs_err} and kernel D's
-    run: {"args": (rf, rb, ef, eb, file_len), "stats": its repair counts}."""
+    hands them to kernel D. Returns {kernel: max_abs_err} and kernels D's
+    and A's runs: {"args": (rf, rb, ef, eb, file_len), "stats": D's repair
+    counts, "refine_args": A's arguments, "refine_stats": A's stats}."""
     import torch
 
     from voxtpu_torch.ops import burg, find_roots, formant_scan, refine
@@ -392,8 +407,11 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     args, valid = kernel_inputs(frames, cfg)
     errs = {"pitch_pre": check_pitch_pre(args["pitch_pre"], checks, tag)}
 
-    xk, fk = refine.refine(*args["refine"])
-    xp, fp = refine.refine_plain(*args["refine"])
+    sk = torch.empty(3, dtype=torch.int64, device=frames.device)
+    sp = torch.empty_like(sk)
+    xk, fk = refine.refine(*args["refine"], stats=sk)
+    xp, fp = refine.refine_plain(*args["refine"], stats=sp)
+    refine_stats = check_refine_runs(args["refine"], xk, fk, sk, sp, checks, tag)
     if f64:
         # tests/test_pallas.py:51-52: Brent's trajectory is chaotic in the
         # last ulp, so agreement is to Brent's tolerance.
@@ -463,7 +481,41 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     # Every frame of the path, as the path calls the kernel: one batched
     # plain step from each output to the next (formant_scan_check).
     stats = check_scan_every_frame(rf, rb, ef, eb, file_len, checks, f"{tag}, every frame of {len(rf)}")
-    return errs, {"args": (rf, rb, ef, eb, file_len), "stats": stats}
+    return errs, {"args": (rf, rb, ef, eb, file_len), "stats": stats, "refine_args": args["refine"],
+                  "refine_stats": refine_stats}
+
+
+def refine_stats_text(stats, live: int) -> str:
+    evals, taps, most = stats
+    return (f"{evals} evaluations ({evals / max(live, 1):.3f} a live candidate), {taps} tap-sides, at most {most} "
+            f"Brent iterations")
+
+
+def check_refine_runs(args, xk, fk, sk, sp, checks: Checks, tag: str) -> tuple:
+    """Kernel A's runs beyond its outputs: the first 64 rows alone and all
+    rows in reverse order give the same bits as in the full call (a
+    candidate's sums depend on its own depth alone), and the kernel's stats
+    (sk) against the plain version's (sp) on the same rows: their
+    evaluation totals within 0.5% (the float32 trajectories part where the
+    sums round apart). Returns the kernel's stats."""
+    import torch
+
+    from voxtpu_torch.ops import refine
+
+    y, x0, valid, *rest = args
+    head = min(64, len(y))
+    rev = torch.arange(len(y) - 1, -1, -1, device=y.device)
+    for case, idx in ((f"first {head} rows alone", slice(0, head)), ("rows in reverse order", rev)):
+        xb, fb = refine.refine(y[idx].contiguous(), x0[idx].contiguous(), valid[idx].contiguous(), *rest)
+        ndiff = int(((bits(xb) != bits(xk[idx])) | (bits(fb) != bits(fk[idx]))).sum())
+        checks.true(f"refine batch invariance [{tag}, {case}]", ndiff == 0,
+                    f"({ndiff} of {xb.numel()} candidates differ in bits from the full call)")
+    live = int(valid.sum())
+    ks, ps = tuple(int(v) for v in sk.cpu()), tuple(int(v) for v in sp.cpu())
+    print(f"  refine stats [{tag}]: kernel {refine_stats_text(ks, live)}; plain {refine_stats_text(ps, live)}")
+    checks.true(f"refine stats, evaluations within 0.5% of plain [{tag}]", abs(ks[0] - ps[0]) <= 0.005 * ps[0],
+                f"({ks[0]} vs {ps[0]})")
+    return ks
 
 
 def scan_stats_text(stats) -> str:
@@ -762,6 +814,36 @@ def polish_bound(args, iters: int = 2) -> tuple[float, str]:
     return bound(6 * F * N * isz, live * per_slot / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
 
+def refine_bound(args, stats) -> tuple[float, str]:
+    """Kernel A's bound at its arguments. Operations: 11 a tap-side (the
+    tap's angle, 2; sin times sign over it, 2; the taper's argument, cos and
+    0.5 + 0.5 c, 4; the coefficient, 1; the product and the sum, 2) over the
+    tap-sides that the live candidates' evaluations summed (`stats`, as the
+    kernel counts them) and those of the one evaluation each masked-off
+    candidate makes at v0. Bytes: the columns of each row that its taps
+    reach at the starts (from the lowest left tap to the highest right tap
+    over the row's candidates), x0, valid and the two outputs."""
+    import torch
+
+    y, x0, valid, offset, max_depth, T = args
+    B, L = y.shape
+    isz = y.element_size()
+
+    def depth(x):
+        return torch.clamp(offset + torch.floor(x).long() + 1, min=0).clamp(max=min(max_depth, T))
+
+    v0 = x0 - 1.0 + (1.0 - 0.6180339887498948) * 2.0
+    dead_taps = int((2 * (depth(v0) + 1))[~valid].sum())
+    base = offset + torch.floor(x0).long()
+    md = depth(x0)
+    lo = torch.clamp(base + 1 - md, 0, L - 1).amin(dim=1)
+    hi = torch.clamp(base + md, 0, L - 1).amax(dim=1)
+    columns = int((hi - lo + 1).sum())
+    nbytes = columns * isz + x0.numel() * (isz + 1) + 2 * x0.numel() * isz
+    ops = 11.0 * (stats[1] + dead_taps)
+    return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
 def ct_fused_bound(x, nfft: int) -> tuple[float, str]:
     """Kernel E's bound at (F, n) frames x: two transforms of nfft points
     whose time side is real (the input, and the lags of a real even
@@ -786,23 +868,12 @@ def cufft_power_ac(x, nfft: int):
     return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : x.shape[-1]]
 
 
-def kernel_bounds(cli: dict, bench: dict) -> dict:
+def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
     operations are counted from this run's inputs, each arithmetic
-    operation, division or cos as one."""
-    import torch
-
-    y, x0, valid, offset, max_depth, T = cli["refine"]
-    # A: Brent evaluates every candidate at v = x0 - 1 + 0.382 * 2 first and
-    # once more at least; each evaluation sums md + 1 taps a side, 11
-    # operations a tap and side, md >= the reference's depth clip at
-    # floor(x0) - 1. Candidates that are not valid take the first only.
-    md = torch.clamp(offset + torch.floor(x0) - 1 + 1, min=0).clamp(max=min(max_depth, T))
-    evals = torch.where(valid, 2.0, 1.0).to(md.dtype)
-    ops_a = float((evals * (md + 1) * 2 * 11).sum())
-    B, C = x0.shape
-    bytes_a = y.numel() * 4 + B * C * (4 + 1) + 2 * B * C * 4
+    operation, division or cos as one; A's from the kernel's stats on the
+    same inputs (`refine_bound`)."""
     x, p = cli["burg"]
     Fb, n = x.shape
     # B: each order sums num and denum over n - i values in float64 (6
@@ -826,7 +897,7 @@ def kernel_bounds(cli: dict, bench: dict) -> dict:
     ops_f = Fv * Cv * Cv * 6
     bytes_f = Fv * Cv * (4 + 4 + 1) + Fv * 4
     return {
-        "refine": bound(bytes_a, ops_a / F32_OPS_S),
+        "refine": refine_bound(cli["refine"], refine_stats),
         "burg": bound(bytes_b, f64_ops / F64_OPS_S + f32_ops / F32_OPS_S),
         "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
         "formant_scan": formant_scan_bound(rf, ef.shape[0]),
@@ -1193,8 +1264,8 @@ def main() -> None:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
     # D: two kernels in two dtypes; E: one a frame length its gate admits
-    # (128-8192 in float32, 128-4096 in float64).
-    for name, count in (("formant_scan", 4), ("ct_fused", 13)):
+    # (128-8192 in float32, 128-4096 in float64); A: one in each dtype.
+    for name, count in (("formant_scan", 4), ("ct_fused", 13), ("refine_kernel", 2)):
         frames = stack_frames(build_log, name)
         checks.true(f"{name} kernels: 0 bytes stack frame and spill", len(frames) == count
                     and all(v == (0, 0, 0) for v in frames.values()), f"{sorted(frames.values())} over {len(frames)}")
@@ -1476,7 +1547,8 @@ def main() -> None:
                 f"({profs['cli']['activities']})")
 
     args32, _ = kernel_inputs(frame_signal(sig32, cfg.frame_len, cfg.hop), cfg)
-    bounds = kernel_bounds(args32, bench_args32)
+    a_stats = scan_runs["cli"][torch.float32]["refine_stats"]  # phase 3's, on the same values
+    bounds = kernel_bounds(args32, bench_args32, a_stats)
     prefix = 256  # the plain scan is a Python loop over frames: time a prefix
     vprefix = 1024  # so is the plain DP
     rf, rb, ef, eb = args32["formant_scan"]
@@ -1551,6 +1623,30 @@ def main() -> None:
     d_row = next(r for r in rows if r["name"] == "formant_scan")
     d_row.update({k: d_paths["cli"][k] for k in ("chunks", "held_share", "frames_rerun")})
     d_row["by_path"] = d_paths
+    # A at the CLI path's shapes (the row above) and at the bench and
+    # flagship shapes in float32, and at the CLI path's shapes in float64,
+    # each beside its bound, its plain version and its stats.
+    a_row = next(r for r in rows if r["name"] == "refine")
+    a_row["stats"] = a_stats
+    a_cases = {"bench": scan_runs["bench"][torch.float32], "flagship": scan_runs["flagship"][torch.float32],
+               "cli, float64": scan_runs["cli"][torch.float64]}
+    a_paths = {}
+    for label, run in a_cases.items():
+        ra, st = run["refine_args"], run["refine_stats"]
+        path = label.split(",")[0]
+        bound_ms, bound_by = refine_bound(ra, st)
+        a_paths[label] = {
+            "ms": event_ms(lambda: refine.refine(*ra)),
+            "plain_ms": event_ms(lambda: refine.refine_plain(*ra), runs=1 if ra[0].dtype == torch.float64 else 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "frames": len(ra[0]), "stats": st,
+            "launches": launches_by_path[path]["refine"],
+        }
+        v = a_paths[label]
+        print(f"  refine, {label}: kernel {v['ms']:.3f} ms ({v['frames']} frames), plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.4f} ms by {v['bound_by']}; {refine_stats_text(st, int(ra[2].sum()))}; "
+              f"{v['launches']} launch(es) on the {path} path [{card}]")
+    print(f"  refine, CLI path: {refine_stats_text(a_stats, int(args32['refine'][2].sum()))} [{card}]")
+    a_row["by_path"] = a_paths
     # E at each path's shapes beside its bound, its plain version and cuFFT;
     # and in float64 at the bench shapes (its frames in float64).
     e_paths = {}

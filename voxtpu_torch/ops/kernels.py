@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 # Argument kinds of each exported launcher, before the trailing stream
 # pointer: p = device pointer, i = int, d = double.
 _SIGNATURES = {
-    "vt_refine": "pppppiiiiiiid",
+    "vt_refine": "ppppppiiiiiiid",
     "vt_burg": "pppiii",
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppppiiii",
