@@ -11,14 +11,15 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; kernel A's, D's and E's kernels must show
-   0 bytes of stack frame and spill;
+   compiler's register report; kernel A's, B's, D's and E's kernels must
+   show 0 bytes of stack frame and spill; beside it, the build of
+   tools/burg_rates.cu's rate probes (phase 10);
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
    two-vowels recording: 35,689 frames of 2205 samples), in float64 and
-   float32; A also bit for bit on its first 64 rows alone and on all rows
-   in reverse order against the full call, and its stats (evaluations,
+   float32; A and B also bit for bit on their first 64 rows alone and on
+   all rows in reverse order against the full call, and A's stats (evaluations,
    tap-sides, most Brent iterations) within 0.5% of the plain version's
    evaluations, as on every path below; G bit-exact, a row with a NaN lag
    included; P bit-exact on kernel C's roots and on `polish_edge_cases`
@@ -28,7 +29,12 @@ checkout. Phases, each an uncaught exception when it fails:
    `formant_scan_check` (one batched plain step from each output to the
    next), as on every path below; then (3b) D on `scan_stress_cases`, its
    adversarial inputs built from the CLI path's float32 resonances, and on
-   `scan_shape_cases` (R from 1 to 100, L from 1 to 16);
+   `scan_shape_cases` (R from 1 to 100, L from 1 to 16); then (3c) B on
+   long frames against its plain version, on noisy frames of the recording
+   (BURG_LARGE): in each dtype the register layout at up to its 512
+   threads a block, its largest frame included, then the rows in shared
+   memory above that, up to the largest frame the kernel before it took;
+   each case must take the layout it names;
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
    launch count reset just before and read just after; G, A-D and P must
    have run once each and E and F not at all, outputs must be finite
@@ -76,7 +82,10 @@ checkout. Phases, each an uncaught exception when it fails:
    most 1,000 device activities. Then each kernel against its plain
    version, with its bound and, for E, the cuFFT library time; A at the
    CLI, bench and flagship shapes and in float64 at the CLI shapes, each
-   with its stats and its bound from them; G also at the CLI path's
+   with its stats and its bound from them; B at the same four, each with
+   its plain version, its bound by operations and its bound with the
+   float -> double conversions at the rate that tools/burg_rates.cu's probe
+   measures in this run (`burg_bound`); G also at the CLI path's
    shapes; D at every path's shapes with its chunks, the share whose
    speculation held and the frames re-run in repair; E at the
    bench, corpus-block and flagship shapes beside its bound and cuFFT, and
@@ -131,6 +140,26 @@ CT_FUSED_F32_TOL = 4e-6
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 F64_OPS_S = 34e12
+# The SM clock those peaks assume (67e12 = 132 SMs x 256 float32 operations
+# a clock x 1.98 GHz). Kernel B's bound with its float -> double conversions
+# takes the conversions a clock an SM that tools/burg_rates.cu's probe
+# measures in the run at this clock.
+PEAK_SM_HZ = 1.98e9
+RATES_SRC = ROOT / "tools" / "burg_rates.cu"
+RATE_PROBES = {"cvt_f64_f32": 0, "dfma_f64": 1, "lds_32bit": 2, "cvt_with_dfma": 3}
+# Kernel B on long frames, checked against its plain version on noisy frames
+# of the recording: (dtype name, frame length, frames, rows in shared
+# memory). In each dtype the register layout at 480 threads and at its
+# largest frame (512 threads x its width c, plus 1), then the rows in shared
+# memory above it and at the largest frame the one-block-of-256 kernel that
+# this one replaced took (2 n values and its static shared memory within the
+# 232,448 bytes a block may take).
+BURG_LARGE = (
+    ("float32", 16384, 256, False), ("float32", 17921, 64, False), ("float32", 20480, 256, True),
+    ("float32", 28927, 16, True),
+    ("float64", 11025, 256, False), ("float64", 11777, 64, False), ("float64", 12288, 256, True),
+    ("float64", 14431, 16, True),
+)
 
 KERNELS = {
     # name: (source, replaced TPU kernel, path whose shapes it is timed at)
@@ -439,11 +468,9 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
 
     ck, sk = burg.burg(*args["burg"])
     cp, sp = burg.burg_plain(*args["burg"])
-    # f64: tests/test_pallas.py:160. f32: both sum in float64, in different
-    # orders, so a reflection coefficient can round to float32 on either side
-    # of a tie (1 ulp), and later orders carry that on.
-    errs["burg"] = checks.close(f"burg coeffs [{tag}]", ck, cp, *((1e-10, 1e-12) if f64 else (1e-4, 1e-5)))
+    errs["burg"] = checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
     checks.equal(f"burg status [{tag}]", sk, sp)
+    check_burg_runs(args["burg"], ck, sk, checks, tag)
 
     rk = find_roots.find_roots(*args["find_roots"])
     rp = find_roots.find_roots_plain(*args["find_roots"])
@@ -482,7 +509,72 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     # plain step from each output to the next (formant_scan_check).
     stats = check_scan_every_frame(rf, rb, ef, eb, file_len, checks, f"{tag}, every frame of {len(rf)}")
     return errs, {"args": (rf, rb, ef, eb, file_len), "stats": stats, "refine_args": args["refine"],
-                  "refine_stats": refine_stats}
+                  "refine_stats": refine_stats, "burg_args": args["burg"]}
+
+
+def burg_tol(dt) -> tuple[float, float]:
+    """Kernel B against its plain version: f64 as tests/test_pallas.py:160;
+    f32: both sum in float64, in different orders, so a reflection
+    coefficient can round to float32 on either side of a tie (1 ulp), and
+    later orders carry that on."""
+    import torch
+
+    return (1e-10, 1e-12) if dt == torch.float64 else (1e-4, 1e-5)
+
+
+def check_burg_runs(args, ck, sk, checks: Checks, tag: str) -> None:
+    """Kernel B's first 64 rows alone and all rows in reverse order give the
+    same bits as in the full call (ck, sk): a frame's sums run in an order
+    fixed by its length alone."""
+    import torch
+
+    from voxtpu_torch.ops import burg
+
+    x, p = args
+    head = min(64, len(x))
+    rev = torch.arange(len(x) - 1, -1, -1, device=x.device)
+    for case, idx in ((f"first {head} rows alone", slice(0, head)), ("rows in reverse order", rev)):
+        cb, sb = burg.burg(x[idx].contiguous(), p)
+        ndiff = int(((bits(cb) != bits(ck[idx])).any(dim=-1) | (sb != sk[idx])).sum())
+        checks.true(f"burg batch invariance [{tag}, {case}]", ndiff == 0,
+                    f"({ndiff} of {len(cb)} frames differ in bits from the full call)")
+
+
+def burg_large_frames(n: int, frames: int, dt, dev):
+    """`frames` Hann-windowed frames of n samples of the recording, tiled,
+    spread over it, plus seeded noise of 0.1 (tests/test_large_frames.py:
+    _noisy_frames): real speech, conditioned as it is."""
+    import torch
+
+    from voxtpu_torch.io_wav import read_wav
+    from voxtpu_torch.windows import hann
+
+    one = np.asarray(read_wav(str(FIXTURE)).samples, dtype=np.float64)
+    sig = np.tile(one, -(-(n * 4) // len(one)) + 1)
+    starts = np.linspace(0, len(sig) - n, frames).astype(int)
+    x = np.stack([sig[s : s + n] for s in starts]) + 0.1 * np.random.default_rng(7).standard_normal((frames, n))
+    return torch.as_tensor(x * hann(n), dtype=dt, device=dev).contiguous()
+
+
+def check_burg_large(checks: Checks, dev) -> None:
+    """Kernel B on long frames against its plain version on noisy frames of
+    the recording (BURG_LARGE), order 13, with the launch the wrapper picks;
+    each case must take the layout it names."""
+    import torch
+
+    from voxtpu_torch.ops import burg
+
+    for dname, n, frames, shared in BURG_LARGE:
+        dt = getattr(torch, dname)
+        config = burg.launch_config(n, dt)
+        x = burg_large_frames(n, frames, dt, dev)
+        tag = f"{frames} frames of {n}, {dname}, {config}"
+        checks.true(f"burg layout [{tag}]", config.shared == shared,
+                    f"(rows {'in shared memory' if shared else 'in registers'} wanted)")
+        ck, sk = burg.burg(x, 13)
+        cp, sp = burg.burg_plain(x, 13)
+        checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
+        checks.equal(f"burg status [{tag}]", sk, sp)
 
 
 def refine_stats_text(stats, live: int) -> str:
@@ -844,6 +936,84 @@ def refine_bound(args, stats) -> tuple[float, str]:
     return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
 
+def burg_bound(x, p: int, cvt_s: float | None = None) -> tuple[float, str]:
+    """Kernel B's bound at (F, n) frames and order p. It reads the frames
+    once and writes (F, p) coefficients and F statuses. Each order i sums
+    num and denum over n - i pairs in float64 (6 operations a pair) and,
+    below p, updates n - i pairs in the frames' dtype (4), at the peak
+    rates. With cvt_s, float -> double conversions a second, it also
+    counts the 2 conversions a summed pair of float frames. They run on a
+    pipe of their own, beside the float64 FMAs (tools/burg_rates.cu's
+    cvt_with_dfma probe runs at the conversion rate), so the least time is
+    the larger of the two, not their sum."""
+    F, n = x.shape
+    isz = x.element_size()
+    summed = sum(n - i for i in range(1, p + 1)) * F
+    updated = sum(n - i for i in range(1, p)) * F
+    nbytes = F * n * isz + F * (p * isz + 4)
+    ops_s = 6.0 * summed / F64_OPS_S + 4.0 * updated / (F32_OPS_S if isz == 4 else F64_OPS_S)
+    if cvt_s is not None and isz == 4:
+        ops_s = max(ops_s, 2.0 * summed / cvt_s)
+    return bound(nbytes, ops_s)
+
+
+def rate_probes_build(nvcc: str) -> tuple[list[str], Path]:
+    """The nvcc command that builds tools/burg_rates.cu's probes into a
+    library under build/, and that library's path."""
+    lib = ROOT / "build" / "burg_rates" / "libburg_rates.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(lib), str(RATES_SRC)], lib
+
+
+def probe_rates(lib_path: Path, names, card: str) -> dict:
+    """The named probes' lane-operations a clock an SM on card 0 (RATE_PROBES),
+    from each probe's time over 3 runs after one warm-up (CUDA events) and
+    the SM clock that thread 0 of block 0 saw (clock64 against the global
+    timer); "sms", the card's SM count."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(str(lib_path))
+    lib.burg_rates_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.burg_rates_probe.restype = ctypes.c_longlong
+    lib.burg_rates_error.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = sms * 16, 256, 4096
+    out = torch.empty(blocks * threads, dtype=torch.float32, device=dev)
+    stamp = torch.zeros(2, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {"sms": sms}
+    for name in names:
+        def run():
+            return lib.burg_rates_probe(RATE_PROBES[name], blocks, threads, iters, out.data_ptr(), stamp.data_ptr(),
+                                        stream)
+
+        per_thread = run()
+        err = lib.burg_rates_error()
+        if per_thread < 0 or err != 0:
+            raise RuntimeError(f"probe {name}: CUDA error {err}")
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        runs = 3
+        start.record()
+        for _ in range(runs):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / runs
+        clocks, ns = (int(v) for v in stamp.cpu())
+        ghz = clocks / ns
+        total = per_thread * blocks * threads
+        per_clock_sm = total / (ms * 1e-3 * ghz * 1e9) / sms
+        rates[name] = {"per_clock_sm": per_clock_sm, "ms": ms, "sm_ghz": ghz, "operations": total}
+        print(f"rate {name}: {per_clock_sm:.2f} a clock an SM ({total:.3e} in {ms:.3f} ms at {ghz:.3f} GHz, "
+              f"{sms} SMs) [{card}]", flush=True)
+    return rates
+
+
 def ct_fused_bound(x, nfft: int) -> tuple[float, str]:
     """Kernel E's bound at (F, n) frames x: two transforms of nfft points
     whose time side is real (the input, and the lags of a real even
@@ -874,13 +1044,6 @@ def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     operations are counted from this run's inputs, each arithmetic
     operation, division or cos as one; A's from the kernel's stats on the
     same inputs (`refine_bound`)."""
-    x, p = cli["burg"]
-    Fb, n = x.shape
-    # B: each order sums num and denum over n - i values in float64 (6
-    # operations a value) and updates b1, b2 in float32 (4).
-    f64_ops = sum(6.0 * (n - i) for i in range(1, p + 1)) * Fb
-    f32_ops = sum(4.0 * (n - i) for i in range(1, p)) * Fb
-    bytes_b = Fb * n * 4 + Fb * (p * 4 + 4)
     c_re, _ = cli["find_roots"]
     Fr, N = c_re.shape
     # C: N - 3 rounds of 20 Laguerre steps; a step evaluates p, p' and p''
@@ -898,7 +1061,7 @@ def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     bytes_f = Fv * Cv * (4 + 4 + 1) + Fv * 4
     return {
         "refine": refine_bound(cli["refine"], refine_stats),
-        "burg": bound(bytes_b, f64_ops / F64_OPS_S + f32_ops / F32_OPS_S),
+        "burg": burg_bound(*cli["burg"]),
         "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
         "formant_scan": formant_scan_bound(rf, ef.shape[0]),
         "ct_fused": ct_fused_bound(*bench["ct_fused"]),
@@ -1257,15 +1420,26 @@ def main() -> None:
 
     # --- 2. build
     t0 = time.perf_counter()
-    lib_path = kernels.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path.relative_to(ROOT)}")
+    nvcc = kernels.find_nvcc()  # kernels.build() says what is missing without it
+    rate_cmd, rates_lib = rate_probes_build(nvcc or "nvcc")
+    rate_build = subprocess.Popen(rate_cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) if nvcc else None
+    try:
+        lib_path = kernels.build()
+    finally:
+        rate_log = rate_build.communicate()[0] if rate_build else ""
+    if rate_build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {RATES_SRC.relative_to(ROOT)}:\n{rate_log}")
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path.relative_to(ROOT)}; rate probes: "
+          f"{rates_lib.relative_to(ROOT)}")
     build_log = lib_path.with_suffix(".log").read_text()
     for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
     # D: two kernels in two dtypes; E: one a frame length its gate admits
     # (128-8192 in float32, 128-4096 in float64); A: one in each dtype.
-    for name, count in (("formant_scan", 4), ("ct_fused", 13), ("refine_kernel", 2)):
+    # B: two in each dtype (its register width, the rows in shared memory).
+    for name, count in (("formant_scan", 4), ("ct_fused", 13), ("refine_kernel", 2), ("burg_kernel", 4)):
         frames = stack_frames(build_log, name)
         checks.true(f"{name} kernels: 0 bytes stack frame and spill", len(frames) == count
                     and all(v == (0, 0, 0) for v in frames.values()), f"{sorted(frames.values())} over {len(frames)}")
@@ -1297,6 +1471,10 @@ def main() -> None:
     rf32, rb32, ef32, eb32, _ = scan_runs["cli"][torch.float32]["args"]
     check_scan_stress(rf32, rb32, ef32, eb32, checks)
     phase_took("phase 3b, kernel D on adversarial inputs")
+
+    print("kernel B's shared-memory layout vs plain, noisy frames of the recording:")
+    check_burg_large(checks, dev)
+    phase_took("phase 3c, kernel B on long frames")
 
     # --- 4. the CLI path, float32
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
@@ -1647,6 +1825,34 @@ def main() -> None:
               f"{v['launches']} launch(es) on the {path} path [{card}]")
     print(f"  refine, CLI path: {refine_stats_text(a_stats, int(args32['refine'][2].sum()))} [{card}]")
     a_row["by_path"] = a_paths
+    # B at the CLI path's shapes (the row above), the bench and flagship
+    # shapes, and the CLI path's in float64, each beside its plain version,
+    # its bound by operations and its bound with the float -> double
+    # conversions at the rate measured here, with the launch the wrapper
+    # picks.
+    b_row = next(r for r in rows if r["name"] == "burg")
+    cvt_rate = probe_rates(rates_lib, ("cvt_f64_f32",), card)
+    cvt_per_clock_sm = cvt_rate["cvt_f64_f32"]["per_clock_sm"]
+    cvt_s = cvt_rate["sms"] * cvt_per_clock_sm * PEAK_SM_HZ
+    b_cases = {"cli": scan_runs["cli"][torch.float32], "bench": scan_runs["bench"][torch.float32],
+               "flagship": scan_runs["flagship"][torch.float32], "cli, float64": scan_runs["cli"][torch.float64]}
+    b_paths = {}
+    for label, run in b_cases.items():
+        bx, bp = run["burg_args"]
+        path = label.split(",")[0]
+        bound_cvt_ms, bound_cvt_by = burg_bound(bx, bp, cvt_s)
+        b_paths[label] = {
+            "ms": event_ms(lambda: burg.burg(bx, bp)),
+            "plain_ms": event_ms(lambda: burg.burg_plain(bx, bp), runs=3),
+            "bound_ms": burg_bound(bx, bp)[0], "bound_cvt_ms": bound_cvt_ms, "bound_by": bound_cvt_by,
+            "frames": len(bx), "n": bx.shape[1], "launch": burg.launch_config(bx.shape[1], bx.dtype)._asdict(),
+            "launches": launches_by_path[path]["burg"],
+        }
+        v = b_paths[label]
+        print(f"  burg, {label}: kernel {v['ms']:.3f} ms ({v['frames']} frames of {v['n']}, {v['launch']}), plain "
+              f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by operations, {v['bound_cvt_ms']:.4f} ms with "
+              f"the conversions (by {v['bound_by']}); {v['launches']} launch(es) on the {path} path [{card}]")
+    b_row.update(bound_cvt_ms=b_paths["cli"]["bound_cvt_ms"], cvt_per_clock_sm=cvt_per_clock_sm, by_path=b_paths)
     # E at each path's shapes beside its bound, its plain version and cuFFT;
     # and in float64 at the bench shapes (its frames in float64).
     e_paths = {}

@@ -14,18 +14,80 @@ and the formants from their roots, are sensitive to it: with float32 sums, the
 kernel and this version, each summing in its own order, put one formant of
 the 44.1 kHz CLI default slice over 1.4 Hz apart (NVIDIA H100 80GB HBM3,
 700 W). In float64 the order no longer shows in the float32 result.
+
+The kernel holds each frame in registers: thread t takes pairs [t c, t c +
+c) of (b1, b2), and an order costs one block barrier. `launch_config` is the
+pure function of (n, dtype) that picks the layout, the threads and the
+width c; the kernel's constants are mirrored here. Frames too long for the
+registers of a block's 512 threads (over 35 x 512 pairs in float32, 23 x 512
+in float64) run the same steps with the rows in shared memory (the `shared`
+layout), up to the card's shared memory a block.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from voxtpu_torch import errors
 from voxtpu_torch.ops import kernels
 
-__all__ = ["burg_plain", "burg"]
+__all__ = ["BurgConfig", "burg_plain", "burg", "launch_config", "layout", "smem_bytes"]
 
-_MAX_ORDER = 64  # csrc/burg.cu kMaxOrder
+# Mirrors of csrc/burg.cu's constants.
+_MAX_ORDER = 64  # kMaxOrder
+_WIDTH = {torch.float32: 35, torch.float64: 23}  # kWidthF32, kWidthF64
+_SHARED_WIDTH = 63  # kSharedWidth
+_MAX_THREADS = 512  # kMaxThreads
+_SMEM_LIMIT = 232448  # kSmemLimit
+
+
+class BurgConfig(NamedTuple):
+    """A launch of kernel B: rows in shared memory or in registers, threads
+    a block, pairs a thread."""
+
+    shared: bool
+    threads: int
+    width: int
+
+
+def _threads(n: int, width: int) -> int:
+    """The fewest whole warps whose threads hold n - 1 pairs, width each."""
+    threads = -(-(n - 1) // width)
+    return -(-threads // 32) * 32
+
+
+def smem_bytes(n: int, dtype: torch.dtype, config: BurgConfig) -> int:
+    """csrc/burg.cu smem_bytes: the rows (n values staged, or b1 and b2 of
+    n - 1 values each), rounded to 16 bytes, then two parities of the warps'
+    (num, den) in double and first pairs in the dtype."""
+    rows = 2 * (n - 1) if config.shared else n
+    warps = config.threads // 32
+    return -(-rows * dtype.itemsize // 16) * 16 + 4 * warps * 8 + 4 * warps * dtype.itemsize
+
+
+def layout(n: int, dtype: torch.dtype, shared: bool) -> BurgConfig | None:
+    """The launch of kernel B for frames of n `dtype` values with the rows in
+    shared memory or in registers, at the fewest whole warps that hold them;
+    None where that takes more than a block's threads or shared memory."""
+    if dtype not in _WIDTH:
+        raise TypeError(f"burg: kernels take float32 or float64, got {dtype}")
+    width = _SHARED_WIDTH if shared else _WIDTH[dtype]
+    config = BurgConfig(shared, _threads(n, width), width)
+    if config.threads > _MAX_THREADS or smem_bytes(n, dtype, config) > _SMEM_LIMIT:
+        return None
+    return config
+
+
+def launch_config(n: int, dtype: torch.dtype) -> BurgConfig:
+    """Kernel B's launch for (B, n) frames of `dtype`, a pure function of
+    (n, dtype): the rows in registers where a block holds them, else in
+    shared memory. Raises ValueError where neither fits."""
+    config = layout(n, dtype, False) or layout(n, dtype, True)
+    if config is None:
+        raise ValueError(f"burg: frames of {n} {dtype} values exceed the kernel's shared memory")
+    return config
 
 
 def burg_plain(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -70,17 +132,19 @@ def burg_plain(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tens
 
 
 def burg(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """`burg_plain` for CPU tensors; on the card, csrc/burg.cu over (B, N)."""
+    """`burg_plain` for CPU tensors; on the card, csrc/burg.cu over (B, N)
+    with `launch_config(N, dtype)`."""
     if kernels.on_cpu(x):
         return burg_plain(x, n_coeffs)
     p = int(n_coeffs)
     if x.dim() != 2 or x.shape[-1] < 2 or not 1 <= p <= _MAX_ORDER:
         raise ValueError(f"burg: x (B, N >= 2) and 1 <= order <= {_MAX_ORDER}; got {x.shape}, {p}")
     B, N = x.shape
+    config = launch_config(N, x.dtype)
     x = x.contiguous()
     coef = torch.empty((B, p), dtype=x.dtype, device=x.device)
     status = torch.empty((B,), dtype=torch.int32, device=x.device)
-    kernels.launch("vt_burg", x.dtype, x, coef, status, B, N, p)
+    kernels.launch("vt_burg", x.dtype, x, coef, status, B, N, p, config.threads, config.width, int(config.shared))
     burg.launches += 1
     return coef, status
 

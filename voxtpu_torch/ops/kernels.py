@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 # pointer: p = device pointer, i = int, d = double.
 _SIGNATURES = {
     "vt_refine": "ppppppiiiiiiid",
-    "vt_burg": "pppiii",
+    "vt_burg": "pppiiiiii",
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppppiiii",
     "vt_ct_fused": "ppppii",
