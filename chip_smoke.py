@@ -11,14 +11,14 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; kernel A's, B's, D's and E's kernels must
-   show 0 bytes of stack frame and spill; beside it, the build of
-   tools/burg_rates.cu's rate probes (phase 10);
+   compiler's register report; kernel A's, B's, C's, D's and E's kernels
+   must show 0 bytes of stack frame and spill (STACK_CHECKED); beside it,
+   the build of tools/burg_rates.cu's rate probes (phase 10);
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
    two-vowels recording: 35,689 frames of 2205 samples), in float64 and
-   float32; A and B also bit for bit on their first 64 rows alone and on
+   float32; A, B and C also bit for bit on their first 64 rows alone and on
    all rows in reverse order against the full call, and A's stats (evaluations,
    tap-sides, most Brent iterations) within 0.5% of the plain version's
    evaluations, as on every path below; G bit-exact, a row with a NaN lag
@@ -27,7 +27,8 @@ checkout. Phases, each an uncaught exception when it fails:
    not finite, -0.0 coefficients), as on every path below; D bit-exact against the plain
    scan on CPU copies of 4,096 frames, and over every frame of the path by
    `formant_scan_check` (one batched plain step from each output to the
-   next), as on every path below; then (3b) D on `scan_stress_cases`, its
+   next), as on every path below; C on `roots_edge_cases` against its plain
+   version in both dtypes; then (3b) D on `scan_stress_cases`, its
    adversarial inputs built from the CLI path's float32 resonances, and on
    `scan_shape_cases` (R from 1 to 100, L from 1 to 16); then (3c) B on
    long frames against its plain version, on noisy frames of the recording
@@ -85,8 +86,10 @@ checkout. Phases, each an uncaught exception when it fails:
    with its stats and its bound from them; B at the same four, each with
    its plain version, its bound by operations and its bound with the
    float -> double conversions at the rate that tools/burg_rates.cu's probe
-   measures in this run (`burg_bound`); G also at the CLI path's
-   shapes; D at every path's shapes with its chunks, the share whose
+   measures in this run (`burg_bound`); C at the same four, each with its
+   plain version, its bound by operations and its floor by instruction
+   issue from one Laguerre iteration's SASS (`roots_issue_floor`); G also
+   at the CLI path's shapes; D at every path's shapes with its chunks, the share whose
    speculation held and the frames re-run in repair; E at the
    bench, corpus-block and flagship shapes beside its bound and cuFFT, and
    in float64 at the bench shapes beside its plain version.
@@ -160,6 +163,13 @@ BURG_LARGE = (
     ("float64", 11025, 256, False), ("float64", 11777, 64, False), ("float64", 12288, 256, True),
     ("float64", 14431, 16, True),
 )
+
+# The kernels whose build must show 0 bytes of stack frame and spill (phase
+# 2), with their instantiation counts. D: two kernels in two dtypes; E: one a
+# frame length its gate admits (128-8192 in float32, 128-4096 in float64); A:
+# one in each dtype; B: two in each dtype (its register width, the rows in
+# shared memory); C: two in each dtype (N = 14 and the capacity, N <= 32).
+STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4}
 
 KERNELS = {
     # name: (source, replaced TPU kernel, path whose shapes it is timed at)
@@ -311,6 +321,19 @@ def refine_inputs(windowed, pre_args, cfg) -> tuple:
     return (lc.self_lag, lc.pos, lc.valid, lc.offset, REFINE_SINC_DEPTH, T)
 
 
+def roots_inputs(windowed, n_coeffs: int) -> tuple:
+    """Kernel C's arguments as the formant stage builds them from (F, n)
+    Hann-windowed frames: the Burg coefficients (kernel B) reversed under a
+    top coefficient of 1, and zero imaginary parts, (F, n_coeffs + 1) each."""
+    import torch
+
+    from voxtpu_torch.ops.burg import burg
+
+    coeffs, _ = burg(windowed.contiguous(), n_coeffs)
+    poly_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
+    return poly_re, torch.zeros_like(poly_re)
+
+
 def kernel_inputs(frames, cfg):
     """Each kernel's arguments at the slice's shapes, computed by the port's
     own stages from (F, n) raw frames; kernel P's are the reversed monic
@@ -318,16 +341,13 @@ def kernel_inputs(frames, cfg):
     import torch
 
     from voxtpu_torch.formants import formant_candidates
-    from voxtpu_torch.ops.burg import burg
     from voxtpu_torch.ops.find_roots import find_roots
 
     f = cfg.formant
     windowed, pre_args = pitch_pre_inputs(frames, cfg)
     refine_args = refine_inputs(windowed, pre_args, cfg)
     burg_args = (windowed.contiguous(), f.n_coeffs)
-    coeffs, _ = burg(*burg_args)
-    poly_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
-    roots_args = (poly_re, torch.zeros_like(poly_re))
+    roots_args = roots_inputs(*burg_args)
     rre, rim, _, _ = find_roots(*roots_args)
     polish_args = (*roots_args, rre, rim)
     rfreq, rbw, _ = formant_candidates(frames, cfg.sample_rate, f.n_coeffs, polish=f.polish)
@@ -384,6 +404,63 @@ def polish_edge_cases(c_re, c_im, z_re, z_im, rows: int = 64) -> tuple:
     c_re[4, 0::3] = -0.0
     c_im[4] = -0.0
     return c_re, c_im, z_re, z_im
+
+
+def roots_edge_cases(dt) -> list:
+    """Kernel C's edge rows, [(name, c_re, c_im)] as NumPy arrays of dtype dt,
+    (rows, N) each (index = power; tests/test_torch_roots.py holds the plain
+    version to voxtpu's on the same rows). N = 14, one row each: all zero;
+    leading zeros (degree 9); low (the lowest nonzero index, zero roots) 1, 2
+    and 3; a linear (m0 = 1) and a quadratic (m0 = 2) live part; -0.0
+    coefficients at the bottom (low 1), the top (degree 12) and inside; a
+    row whose first Laguerre result is exactly 0 (POLY_DIV_ZERO, the later
+    round skipped): the quartic whose Taylor terms at the start -2 - 2i make
+    the first step exactly 2 + 2i in dyadic arithmetic, with constant term
+    2^-70, so that |p(0)| <= 1e-16 freezes z there; and complex
+    coefficients (degree 7). N = 1, 2 and 3: constants, linear and quadratic
+    rows; N = 32: degree 16 and, with low 2, degree 18. The polynomials are
+    products of roots in the annulus 0.3 <= |z| <= 0.6, in conjugate pairs
+    (and 0.5) where the coefficients are real, drawn with seed 16: of seeds
+    13-22 the first whose rows all settle in 20 Laguerre steps in both
+    dtypes (voxtpu's float32 answer within 1e-4 of the plain version's, not
+    hanging on the last bit of a libm call; higher degrees and other seeds
+    end unsettled in float32, where two libms part by up to 1)."""
+    rng = np.random.default_rng(16)
+
+    def poly(n, real: bool = True):
+        """Coefficients (index = power) of n roots in the annulus."""
+        r = rng.uniform(0.3, 0.6, n) * np.exp(1j * rng.uniform(0.05, np.pi - 0.05, n))
+        if real:
+            r = np.concatenate([r[: n // 2], r[: n // 2].conj(), [0.5] * (n % 2)])
+        return np.poly(r)[::-1]
+
+    c14 = np.zeros((10, 14), complex)
+    c14[1, :10] = poly(9)
+    for row, low in ((2, 1), (3, 2), (4, 3)):
+        c14[row, low:] = poly(13 - low)
+    c14[5, 4:6] = (0.75, -1.5)  # linear live part
+    c14[6, 2:5] = (1.0, -2.5, 2.0)  # quadratic live part
+    c14[7] = poly(13)
+    c14[8, :5] = (2.0**-70, -16.875 + 18.125j, 0.875 + 25.75j, 6.515625 + 6.234375j, 1.0)  # POLY_DIV_ZERO
+    c14[9, :8] = poly(7, real=False)
+    c32 = np.zeros((2, 32), complex)
+    c32[0, :17] = poly(16)
+    c32[1, 2:21] = poly(18)
+    cases = [
+        ("N = 14", c14),
+        ("N = 1", np.array([[2.0], [0.0], [-1.5j]])),
+        ("N = 2", np.array([[1.0, 2.5], [0.0, 3.0], [2.0, 0.0], [1 - 2j, 0.5j]])),
+        ("N = 3", np.array([[1.0, -2.5, 2.0], [1.0, 2.0, 5.0], [0.0, 1.0, 1.0], [2j, 1 - 1j, 0.5]])),
+        ("N = 32", c32),
+    ]
+    out = []
+    for name, c in cases:
+        re, im = np.ascontiguousarray(c.real, dt), np.ascontiguousarray(c.imag, dt)
+        if name == "N = 14":
+            re[7, 0], im[7, 0], re[7, 13], im[7, 13] = -0.0, -0.0, -0.0, -0.0
+            re[7, 5::4] = -0.0
+        out.append((name, re, im))
+    return out
 
 
 def bits(x):
@@ -474,14 +551,12 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
 
     rk = find_roots.find_roots(*args["find_roots"])
     rp = find_roots.find_roots_plain(*args["find_roots"])
-    # f64: 1e-9 on unit-circle roots. f32: Laguerre runs all 20 steps at f32
-    # resolution and deflation carries each root's error into the next.
-    rtol_atol = (1e-9, 1e-9) if f64 else (1e-3, 1e-3)
-    e1 = checks.close(f"roots re [{tag}]", rk[0], rp[0], *rtol_atol)
-    e2 = checks.close(f"roots im [{tag}]", rk[1], rp[1], *rtol_atol)
+    e1 = checks.close(f"roots re [{tag}]", rk[0], rp[0], *roots_tol(dt))
+    e2 = checks.close(f"roots im [{tag}]", rk[1], rp[1], *roots_tol(dt))
     errs["find_roots"] = max(e1, e2)
     checks.equal(f"roots count [{tag}]", rk[2], rp[2])
     checks.equal(f"roots status [{tag}]", rk[3], rp[3])
+    check_roots_runs(args["find_roots"], rk, checks, tag)
     errs["polish"] = check_polish(args["polish"], checks, tag)
 
     # Bit-exact. One recording: over the first 4,096 frames, as the path's
@@ -509,7 +584,50 @@ def check_kernels(frames, cfg, checks: Checks, label: str, file_len: int | None 
     # plain step from each output to the next (formant_scan_check).
     stats = check_scan_every_frame(rf, rb, ef, eb, file_len, checks, f"{tag}, every frame of {len(rf)}")
     return errs, {"args": (rf, rb, ef, eb, file_len), "stats": stats, "refine_args": args["refine"],
-                  "refine_stats": refine_stats, "burg_args": args["burg"]}
+                  "refine_stats": refine_stats, "burg_args": args["burg"], "roots_args": args["find_roots"]}
+
+
+def roots_tol(dt) -> tuple[float, float]:
+    """Kernel C against its plain version: f64 1e-9 on unit-circle roots;
+    f32: Laguerre runs all 20 steps at f32 resolution and deflation carries
+    each root's error into the next."""
+    import torch
+
+    return (1e-9, 1e-9) if dt == torch.float64 else (1e-3, 1e-3)
+
+
+def check_roots_runs(args, rk, checks: Checks, tag: str) -> None:
+    """Kernel C's first 64 rows alone and all rows in reverse order give the
+    same bits as in the full call (rk): a polynomial's roots depend on its
+    own row alone."""
+    import torch
+
+    from voxtpu_torch.ops import find_roots
+
+    c_re, c_im = args
+    head = min(64, len(c_re))
+    rev = torch.arange(len(c_re) - 1, -1, -1, device=c_re.device)
+    for case, idx in ((f"first {head} rows alone", slice(0, head)), ("rows in reverse order", rev)):
+        got = find_roots.find_roots(c_re[idx].contiguous(), c_im[idx].contiguous())
+        apart = ((bits(got[0]) != bits(rk[0][idx])) | (bits(got[1]) != bits(rk[1][idx]))).any(dim=-1)
+        ndiff = int((apart | (got[2] != rk[2][idx]) | (got[3] != rk[3][idx])).sum())
+        checks.true(f"roots batch invariance [{tag}, {case}]", ndiff == 0,
+                    f"({ndiff} of {len(got[2])} rows differ in bits from the full call)")
+
+
+def check_roots_edge(dt, dev, checks: Checks, tag: str) -> None:
+    """Kernel C on `roots_edge_cases` against its plain version on the card,
+    at `roots_tol`, with count and status equal."""
+    import torch
+
+    from voxtpu_torch.ops import find_roots
+
+    for name, re_, im_ in roots_edge_cases(np.float32 if dt == torch.float32 else np.float64):
+        c = (torch.as_tensor(re_, device=dev), torch.as_tensor(im_, device=dev))
+        rk, rp = find_roots.find_roots(*c), find_roots.find_roots_plain(*c)
+        for part, k, p in zip(("re", "im"), rk, rp):
+            checks.close(f"roots {part} [{tag}, edge rows {name}]", k, p, *roots_tol(dt))
+        checks.equal(f"roots count and status [{tag}, edge rows {name}]", torch.stack(rk[2:]), torch.stack(rp[2:]))
 
 
 def burg_tol(dt) -> tuple[float, float]:
@@ -676,6 +794,113 @@ def stack_frames(log: str, kernel: str) -> dict:
             out[name] = tuple(int(g) for g in m.groups())
         name = None
     return out
+
+
+def kernel_registers(log: str, kernel: str) -> dict:
+    """{kernel: registers a thread} of every kernel whose name holds `kernel`
+    in the build's `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def sass(lib_path: Path, kernel: str) -> dict:
+    """{function: [(address, opcode, instruction)]} of every function whose
+    name holds `kernel` in the library's SASS (`cuobjdump -sass`, beside
+    nvcc); {} where the toolkit has no cuobjdump."""
+    from voxtpu_torch.ops import kernels
+
+    nvcc = kernels.find_nvcc()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.is_file():
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                out[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and name:
+            ins = m.group(2).strip()
+            words = ins.split()
+            out[name].append((int(m.group(1), 16), words[1] if words[0].startswith("@") else words[0], ins))
+    return out
+
+
+def laguerre_loop(instructions: list) -> dict | None:
+    """Kernel C's Laguerre iteration in one function's SASS (`sass`): the
+    shortest backward branch whose span holds a MUFU (the divisions'
+    reciprocals, the square roots). Returns its static instruction count,
+    the float64 ones among them, and the counts of the loops nested in it
+    (whose bodies run more than once an iteration); None if no loop holds
+    a MUFU."""
+    loops = []
+    for addr, op, ins in instructions:
+        m = re.search(r"0x([0-9a-f]+)", ins) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+
+    def body(lo, hi):
+        return [(op, ins) for addr, op, ins in instructions if lo <= addr <= hi]
+
+    spans = [span for span in loops if any(op.startswith("MUFU") for op, _ in body(*span))]
+    if not spans:
+        return None
+    lo, hi = min(spans, key=lambda s: s[1] - s[0])
+    ops = [op for op, _ in body(lo, hi)]
+    return {"instructions": len(ops), "float64": sum(op[0] == "D" and op != "DEPBAR" for op in ops),
+            "nested": [len(body(a, b)) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]}
+
+
+def roots_loops(lib_path: Path, N: int) -> dict:
+    """{"f32": loop, "f64": loop}: `laguerre_loop` of the roots_kernel that
+    runs (B, N) rows of each dtype (the one templated on N where there is
+    one), None without cuobjdump."""
+    funcs = sass(lib_path, "roots_kernel")
+    out = {}
+    for dname, tag in (("f32", "roots_kernelIf"), ("f64", "roots_kernelId")):
+        names = sorted((n for n in funcs if tag in n), key=lambda n: f"Li{N}E" not in n)
+        out[dname] = laguerre_loop(funcs[names[0]]) if names else None
+    return out
+
+
+def roots_issue_floor(c_re, c_im, per_iter: int, sms: int, float64: int = 0) -> tuple[float, float]:
+    """Kernel C's least time by instruction issue, in ms, at (F, N)
+    coefficients, from the instructions of one Laguerre iteration (`per_iter`,
+    `float64` of them on the float64 pipe, which takes a warp's instruction
+    in 2 clocks): each warp of 32 rows runs 20 iterations for each round that
+    its longest row needs (min(max(m0 - 2, 0), N - 3), m0 the live degree).
+    Returns (every warp on the card's 4 x sms schedulers at an even share,
+    the busiest scheduler's ceil(warps / (4 sms)) warps of the most
+    iterations), at PEAK_SM_HZ."""
+    import torch
+
+    F, N = c_re.shape
+    nz = (c_re != 0) | (c_im != 0)
+    idx = torch.arange(N, device=c_re.device)
+    deg = torch.where(nz, idx, 0).amax(dim=1)
+    low = torch.where(nz, idx, N - 1).amin(dim=1)
+    rounds = (deg - low - 2).clamp(min=0, max=max(N - 3, 0))
+    warps = -(-F // 32)
+    pad = torch.zeros(warps * 32 - F, dtype=rounds.dtype, device=rounds.device)
+    warp_iters = 20 * torch.cat([rounds, pad]).reshape(warps, 32).amax(dim=1)
+    cycles = per_iter + float64
+    schedulers = 4 * sms
+    even = float(warp_iters.sum()) * cycles / (schedulers * PEAK_SM_HZ)
+    busiest = -(-warps // schedulers) * float(warp_iters.max()) * cycles / PEAK_SM_HZ
+    return even * 1e3, busiest * 1e3
 
 
 def scan_stress_cases(rf, rb, chunk: int, span: int = 2000, uniform: int = 20000, block: int = 16,
@@ -1038,20 +1263,26 @@ def cufft_power_ac(x, nfft: int):
     return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : x.shape[-1]]
 
 
+def roots_bound(c_re) -> tuple[float, str]:
+    """Kernel C's bound at (F, N) coefficients: N - 3 rounds of 20 Laguerre
+    steps; a step evaluates p, p' and p'' over the live degree (3 complex
+    multiply-adds, 24 operations, a coefficient) plus about 60 for the
+    square root and the division. It reads the (F, N) coefficient pairs and
+    writes (F, N - 1) root pairs, the counts and the statuses."""
+    F, N = c_re.shape
+    isz = c_re.element_size()
+    degs = [N - 1 - r for r in range(max(N - 3, 0))]
+    ops = F * 20 * sum(24 * d + 60 for d in degs)
+    nbytes = F * N * 2 * isz + F * (N - 1) * 2 * isz + F * 8
+    return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
 def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
     operations are counted from this run's inputs, each arithmetic
     operation, division or cos as one; A's from the kernel's stats on the
     same inputs (`refine_bound`)."""
-    c_re, _ = cli["find_roots"]
-    Fr, N = c_re.shape
-    # C: N - 3 rounds of 20 Laguerre steps; a step evaluates p, p' and p''
-    # over the live degree (3 complex multiply-adds, 24 operations, a
-    # coefficient) plus about 60 for the square root and the division.
-    degs = [N - 1 - r for r in range(max(N - 3, 0))]
-    ops_c = Fr * 20 * sum(24 * d + 60 for d in degs)
-    bytes_c = Fr * N * 2 * 4 + Fr * (N - 1) * 2 * 4 + Fr * 8
     rf, _, ef, _ = cli["formant_scan"]
     local = bench["viterbi"][0]
     Fv, Cv = local.shape
@@ -1062,7 +1293,7 @@ def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     return {
         "refine": refine_bound(cli["refine"], refine_stats),
         "burg": burg_bound(*cli["burg"]),
-        "find_roots": bound(bytes_c, ops_c / F32_OPS_S),
+        "find_roots": roots_bound(cli["find_roots"][0]),
         "formant_scan": formant_scan_bound(rf, ef.shape[0]),
         "ct_fused": ct_fused_bound(*bench["ct_fused"]),
         "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
@@ -1436,10 +1667,7 @@ def main() -> None:
     for line in build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
-    # D: two kernels in two dtypes; E: one a frame length its gate admits
-    # (128-8192 in float32, 128-4096 in float64); A: one in each dtype.
-    # B: two in each dtype (its register width, the rows in shared memory).
-    for name, count in (("formant_scan", 4), ("ct_fused", 13), ("refine_kernel", 2), ("burg_kernel", 4)):
+    for name, count in STACK_CHECKED.items():
         frames = stack_frames(build_log, name)
         checks.true(f"{name} kernels: 0 bytes stack frame and spill", len(frames) == count
                     and all(v == (0, 0, 0) for v in frames.values()), f"{sorted(frames.values())} over {len(frames)}")
@@ -1465,6 +1693,9 @@ def main() -> None:
     path_errs["cli"], scan_runs["cli"] = check_path_kernels(
         "CLI path", frames64, cfg, {torch.float64: None, torch.float32: None}, checks)
     del frames64
+    print("kernel C vs plain on its edge rows:")
+    for dt in (torch.float64, torch.float32):
+        check_roots_edge(dt, dev, checks, "f64" if dt == torch.float64 else "f32")
     phase_took("phase 3, kernels vs plain")
 
     print("kernel D on adversarial inputs from the CLI path's float32 resonances:")
@@ -1853,6 +2084,38 @@ def main() -> None:
               f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by operations, {v['bound_cvt_ms']:.4f} ms with "
               f"the conversions (by {v['bound_by']}); {v['launches']} launch(es) on the {path} path [{card}]")
     b_row.update(bound_cvt_ms=b_paths["cli"]["bound_cvt_ms"], cvt_per_clock_sm=cvt_per_clock_sm, by_path=b_paths)
+    # C at the CLI path's shapes (the row above), the bench and flagship
+    # shapes, and the CLI path's in float64, each beside its plain version,
+    # its bound by operations and its floor by instruction issue, counted
+    # from one Laguerre iteration's SASS (`roots_loops`, `roots_issue_floor`).
+    c_row = next(r for r in rows if r["name"] == "find_roots")
+    c_loops = roots_loops(lib_path, args32["find_roots"][0].shape[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c_cases = {"cli": scan_runs["cli"][torch.float32], "bench": scan_runs["bench"][torch.float32],
+               "flagship": scan_runs["flagship"][torch.float32], "cli, float64": scan_runs["cli"][torch.float64]}
+    c_paths = {}
+    for label, run in c_cases.items():
+        rc = run["roots_args"]
+        path = label.split(",")[0]
+        dname = "f64" if rc[0].dtype == torch.float64 else "f32"
+        loop = c_loops[dname]
+        floor = roots_issue_floor(*rc, loop["instructions"], sms, loop["float64"] if dname == "f64" else 0) \
+            if loop else None
+        bound_ms, bound_by = roots_bound(rc[0])
+        c_paths[label] = {
+            "ms": c_row["ms"] if label == "cli" else event_ms(lambda: find_roots.find_roots(*rc)),
+            "plain_ms": c_row["plain_ms"] if label == "cli" else event_ms(lambda: find_roots.find_roots_plain(*rc),
+                                                                           runs=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "issue_floor_ms": floor, "laguerre_sass": loop,
+            "frames": len(rc[0]), "launches": launches_by_path[path]["find_roots"],
+        }
+        v = c_paths[label]
+        text = "no cuobjdump" if floor is None else (
+            f"issue floor {floor[0]:.4f} ms even, {floor[1]:.4f} on the busiest scheduler ({loop['instructions']} "
+            f"SASS instructions an iteration, {loop['float64']} float64)")
+        print(f"  find_roots, {label}: kernel {v['ms']:.3f} ms ({v['frames']} frames), plain {v['plain_ms']:.3f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by}; {text}; {v['launches']} launch(es) on the {path} path [{card}]")
+    c_row["by_path"] = c_paths
     # E at each path's shapes beside its bound, its plain version and cuFFT;
     # and in float64 at the bench shapes (its frames in float64).
     e_paths = {}

@@ -5,8 +5,11 @@ replaces voxtpu/ops/roots_pallas.py's `find_roots_pallas`).
 (polynomial.rs:92-152): leading zeros shift out as zero roots, then
 max(N-3, 0) rounds of 20-iteration Laguerre plus synthetic deflation, then
 the closed-form quadratic or linear tail. `find_roots` runs it for CPU
-tensors and launches the kernel, one thread per polynomial, for CUDA
-tensors.
+tensors and launches the kernel, one thread per polynomial with the
+polynomial in registers, for CUDA tensors; it takes 1 <= N <= _MAX_N on
+either device. The kernel is compiled for N = _N (the order-13 polynomials
+of every configuration the repo runs) and once for any other N up to
+_MAX_N, in blocks of _THREADS.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from voxtpu_torch.ops import kernels
 
 __all__ = ["find_roots_plain", "find_roots"]
 
-_MAX_N = 32  # csrc/roots.cu kMaxN
+# Mirrors of csrc/roots.cu's constants.
+_N = 14  # kN
+_MAX_N = 32  # kMaxN
+_THREADS = 64  # kThreads
 
 
 def find_roots_plain(c_re: torch.Tensor, c_im: torch.Tensor):
@@ -95,12 +101,12 @@ def find_roots_plain(c_re: torch.Tensor, c_im: torch.Tensor):
 
 def find_roots(c_re: torch.Tensor, c_im: torch.Tensor):
     """`find_roots_plain` for CPU tensors; on the card, csrc/roots.cu."""
-    if kernels.on_cpu(c_re, c_im):
-        return find_roots_plain(c_re, c_im)
     if c_re.dim() != 2 or c_re.shape != c_im.shape or not 1 <= c_re.shape[1] <= _MAX_N:
-        raise ValueError(f"find_roots: c_re, c_im (B, N <= {_MAX_N}); got {c_re.shape}, {c_im.shape}")
+        raise ValueError(f"find_roots: c_re, c_im (B, 1 <= N <= {_MAX_N}); got {c_re.shape}, {c_im.shape}")
     if c_im.dtype != c_re.dtype:
         raise TypeError("find_roots: c_re and c_im must share a dtype")
+    if kernels.on_cpu(c_re, c_im):
+        return find_roots_plain(c_re, c_im)
     B, N = c_re.shape
     c_re, c_im = c_re.contiguous(), c_im.contiguous()
     r_re = torch.empty_like(c_re)
