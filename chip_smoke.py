@@ -11,9 +11,10 @@ checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; kernel A's, B's, C's, D's and E's kernels
-   must show 0 bytes of stack frame and spill (STACK_CHECKED); beside it,
-   the build of tools/burg_rates.cu's rate probes (phase 10);
+   compiler's register report; every instantiation of kernels A-F and P
+   must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
+   memory a block at C = 33 and 128 in both dtypes; beside it, the build
+   of tools/burg_rates.cu's rate probes (phase 10);
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
@@ -35,7 +36,9 @@ checkout. Phases, each an uncaught exception when it fails:
    (BURG_LARGE): in each dtype the register layout at up to its 512
    threads a block, its largest frame included, then the rows in shared
    memory above that, up to the largest frame the kernel before it took;
-   each case must take the layout it names;
+   each case must take the layout it names; then (3d) B, C and P at N =
+   33, 64 and 128 (LPC orders to 127, ORDER_NS) against their plain
+   versions in both dtypes (`check_orders`);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
    launch count reset just before and read just after; G, A-D and P must
    have run once each and E and F not at all, outputs must be finite
@@ -44,7 +47,10 @@ checkout. Phases, each an uncaught exception when it fails:
    path over the first 2 s, and float32 against float64 on the card over
    the whole signal within the fast-mode budgets, where a frame over a
    budget must be over it in the plain path too (see `check_budgets`);
-   float64 launches no P (it never polishes);
+   float64 launches no P (it never polishes); `analyze` at LPC order 40
+   in float64 on the card against the plain CPU path over the first 2 s,
+   and an order-127 formant stage into kernel D at R = 127, bit for bit
+   against the plain scan (`check_high_order_path`);
 6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024, Viterbi
    off as bench.py runs it) over the same 126 tiles (15,369 frames), every
    kernel but F launched once; and bench_viterbi, the same with the
@@ -53,7 +59,9 @@ checkout. Phases, each an uncaught exception when it fails:
    float32 against float64 within the budgets by phase 5's rule, the plain
    path over the whole signal built from one period of it
    (`plain_periodic`); and `analyze_long` against `analyze` in float64.
-   Float64 card-vs-CPU parity over the first 2 s on both;
+   Float64 card-vs-CPU parity over the first 2 s on both; then (6b)
+   kernel F on `viterbi_edge_cases` against its plain version, bit for
+   bit, in both dtypes;
 7. the corpus block: `analyze_batch_padded` over 16 recordings (8 tiles
    each, random gain and trimmed tail), every kernel but F launched once
    for the block in float32 (corpus), all eight with the path search
@@ -92,7 +100,13 @@ checkout. Phases, each an uncaught exception when it fails:
    at the CLI path's shapes; D at every path's shapes with its chunks, the share whose
    speculation held and the frames re-run in repair; E at the
    bench, corpus-block and flagship shapes beside its bound and cuFFT, and
-   in float64 at the bench shapes beside its plain version.
+   in float64 at the bench shapes beside its plain version; F's pre-pass
+   and chain apart in each _viterbi path's trace, and at the bench_viterbi
+   shapes in both dtypes its time, its time with every frame step's
+   records in one chunk, its chain's clocks a step and floor (the chain's probe, through
+   `viterbi._launch`), beside its bound and the time to write and read
+   back its records (`records_ms`); P beside its bound at 1 + iters passes and at
+   the plain version's 1 + 2 iters.
 
 Each phase prints the seconds it took.
 
@@ -168,8 +182,16 @@ BURG_LARGE = (
 # 2), with their instantiation counts. D: two kernels in two dtypes; E: one a
 # frame length its gate admits (128-8192 in float32, 128-4096 in float64); A:
 # one in each dtype; B: two in each dtype (its register width, the rows in
-# shared memory); C: two in each dtype (N = 14 and the capacity, N <= 32).
-STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4}
+# shared memory); C: two in each dtype (N = 14 and the capacity, N <= 128);
+# P: two in each dtype (N = 14 in registers, any N <= 128); F: the cost
+# pre-pass in each dtype, and the chain in each dtype with and without its
+# clock probe.
+STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4,
+                 "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4}
+# The LPC orders above order 13 that the card takes, as N = order + 1
+# coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
+# own limit of order 127 (voxtpu/ops/burg_pallas.py:87-88).
+ORDER_NS = (33, 64, 128)
 
 KERNELS = {
     # name: (source, replaced TPU kernel, path whose shapes it is timed at)
@@ -184,12 +206,18 @@ KERNELS = {
     "polish": ("voxtpu_torch/csrc/polish.cu", "voxtpu/roots.py:370", "cli"),
 }
 # Each wrapper's device kernel, as torch.profiler names it (D's wrapper
-# launches formant_scan_speculate and, after it, formant_scan_repair).
+# launches formant_scan_speculate and, after it, formant_scan_repair; F's
+# launches viterbi_costs and, after it, viterbi_chain).
 KERNEL_ACTIVITY = {
     "refine": "refine_kernel", "burg": "burg_kernel", "find_roots": "roots_kernel",
-    "formant_scan": "formant_scan_speculate", "ct_fused": "ct_fused_kernel", "viterbi": "viterbi_kernel",
+    "formant_scan": "formant_scan_speculate", "ct_fused": "ct_fused_kernel", "viterbi": "viterbi_chain",
     "pitch_pre": "pitch_pre_kernel", "polish": "polish_kernel",
 }
+# (count, activity) of every device kernel a trace must hold as often as
+# the count says: each wrapper's launches, and for F's two device kernels
+# the chunks of frame steps its launches ran (`viterbi_path.chunks`).
+TRACED_ACTIVITIES = [("viterbi_chunks" if name == "viterbi" else name, act) for name, act in KERNEL_ACTIVITY.items()]
+TRACED_ACTIVITIES.append(("viterbi_chunks", "viterbi_costs"))
 # torch.profiler keeps the device activities whose timestamps fall inside
 # the active step, but the card's activity clock and the host's disagree by
 # a fraction of a millisecond (the profiler warns "GPU op timestamp <
@@ -460,6 +488,37 @@ def roots_edge_cases(dt) -> list:
             re[7, 0], im[7, 0], re[7, 13], im[7, 13] = -0.0, -0.0, -0.0, -0.0
             re[7, 5::4] = -0.0
         out.append((name, re, im))
+    return out
+
+
+def roots_order_cases(dt) -> list:
+    """Kernel C's rows at the LPC orders above the register instantiation,
+    [(name, c_re, c_im)] as NumPy arrays of dtype dt, (4, N) each for N =
+    33, 64 and 128 (orders 32, 63 and 127; tests/test_torch_roots.py holds
+    the plain version to voxtpu's on them): a full-degree row at N = 33
+    (roots 0.9 (1 +- 5%) spread over the circle, seed 0, conjugate pairs),
+    and at each N a degree-12 row under leading zeros, a row of 13 live
+    roots above N - 14 zero roots, and a row of 20 live roots from index 5.
+    Every row settles in 20 Laguerre steps in float64. Full-degree rows at
+    N = 64 and 128 do not: the reference's n, the first round's live degree
+    held through deflation, leaves its roots 1e-4 to 1 from the true ones
+    after 20 steps, in voxtpu as in the port, and two libms part there."""
+    rng = np.random.default_rng(0)
+
+    def circle(n, rho=0.9):
+        m = n // 2
+        ang = np.pi * (np.arange(m) + 0.5) / m + rng.uniform(-0.3, 0.3, m) * np.pi / m
+        r = rho * (1 + rng.uniform(-0.05, 0.05, m)) * np.exp(1j * ang)
+        return np.poly(np.concatenate([r, r.conj(), [rho * 0.9] * (n % 2)]))[::-1]
+
+    out = []
+    for N in (33, 64, 128):
+        c = np.zeros((4, N), complex)
+        c[0] = circle(32) if N == 33 else np.concatenate([circle(24, 0.7), np.zeros(N - 25)])
+        c[1, :13] = circle(12, 0.6)
+        c[2, N - 14:] = circle(13, 0.8)
+        c[3, 5:26] = circle(20, 0.75)
+        out.append((f"N = {N}", np.ascontiguousarray(c.real, dt), np.ascontiguousarray(c.imag, dt)))
     return out
 
 
@@ -1018,6 +1077,180 @@ def check_ct_fused(x, nfft: int, checks: Checks, tag: str) -> float:
     return max(float((hk - hp).abs().max()), float((ak - ap).abs().max()))
 
 
+def viterbi_edge_cases(dt, dev) -> list:
+    """Kernel F's edge inputs, [(name, local, freq, voiced)] on dev, as
+    `path_inputs` builds them (freq 1.0 where a candidate is unvoiced, local
+    -inf on 10% of the lanes, strengths quantised to 0.1 so that totals
+    tie), seeded: an all -inf frame; NaN scores; exact ties (equal scores,
+    three frequencies); every frame unvoiced; voiced and unvoiced frames in
+    turn; C = 1, 2, 3, 5 (a lane of each candidate's 4 with no previous
+    candidate to take), 32, 33 and 128; F = 1, 2 and 3, and F - 1 steps at
+    the ring's depth and one on either side; B = 16 recordings of one
+    launch."""
+    import torch
+
+    from voxtpu_torch.ops.viterbi import launch_config
+
+    rng = np.random.default_rng(11)
+
+    def gen(B, F, C, voiced_p=0.7):
+        voiced = rng.random((B, F, C)) < voiced_p
+        freq = np.where(voiced, rng.uniform(60.0, 600.0, (B, F, C)), 1.0)
+        local = np.round(rng.uniform(0.0, 1.0, (B, F, C)), 1)
+        local[rng.random((B, F, C)) < 0.1] = -np.inf
+        return local, freq, voiced
+
+    cases = []
+    local, freq, voiced = gen(1, 300, 33)
+    local[0, 100] = -np.inf
+    cases.append(("an all -inf frame", local, freq, voiced))
+    local, freq, voiced = gen(1, 300, 33)
+    local[0, 50:60, ::3] = np.nan
+    cases.append(("NaN scores", local, freq, voiced))
+    local, freq, voiced = gen(1, 300, 33, voiced_p=1.0)
+    local[:] = 0.5
+    freq = rng.choice([100.0, 200.0, 400.0], freq.shape)
+    cases.append(("exact ties", local, freq, voiced))
+    local, freq, voiced = gen(1, 300, 33, voiced_p=0.0)
+    cases.append(("every frame unvoiced", local, freq, voiced))
+    local, freq, voiced = gen(1, 300, 33)
+    voiced[:] = (np.arange(300) % 2 == 0)[None, :, None]
+    freq = np.where(voiced, rng.uniform(60.0, 600.0, freq.shape), 1.0)
+    cases.append(("voiced and unvoiced in turn", local, freq, voiced))
+    for C in (1, 2, 3, 5, 32, 33, 128):
+        cases.append((f"C = {C}", *gen(2, 200, C)))
+    ring = launch_config(1, 2, 33, dt)
+    depth = ring.stages * ring.per  # records the ring holds
+    for F in (1, 2, 3, depth, depth + 1, depth + 2):
+        cases.append((f"F = {F} ({F - 1} steps, ring depth {depth})", *gen(1, F, 33)))
+    cases.append(("B = 16 recordings", *gen(16, 120, 33)))
+    return [(name, torch.as_tensor(lo, dtype=dt, device=dev), torch.as_tensor(fr, dtype=dt, device=dev),
+             torch.as_tensor(vo, device=dev)) for name, lo, fr, vo in cases]
+
+
+def check_viterbi_edges(checks: Checks, dev) -> None:
+    """Kernel F on `viterbi_edge_cases` against its plain version, paths
+    equal, in both dtypes; and in chunks of frame steps (`VITERBI_CHUNKS`,
+    through `viterbi._launch`) on the B = 16, C = 128 and ring-depth cases,
+    each chunk's chain carrying its scores to the next."""
+    import torch
+
+    from voxtpu_torch.ops import viterbi
+    from voxtpu_torch.viterbi import PathConfig
+
+    pc = PathConfig()
+    ojc, vuc = pc.octave_jump_cost, pc.voiced_unvoiced_cost
+    for dt in (torch.float64, torch.float32):
+        dname = "f64" if dt == torch.float64 else "f32"
+        for name, local, freq, voiced in viterbi_edge_cases(dt, dev):
+            pk = viterbi.viterbi_path(local, freq, voiced, ojc, vuc)
+            pp = viterbi.viterbi_path_plain(local, freq, voiced, ojc, vuc)
+            shape = " x ".join(map(str, local.shape))
+            checks.equal(f"viterbi path [{name}, {shape}, {dname}]", pk, pp)
+            Fv = local.shape[1]
+            if name.startswith(("B = 16", "C = 128", "F = ")) and Fv > 2:
+                for steps in sorted({k for k in VITERBI_CHUNKS if k < Fv - 1} | {Fv - 2}):
+                    pc_ = viterbi._launch(local, freq, voiced, ojc, vuc, steps=steps)
+                    checks.equal(f"viterbi path [{name}, {shape}, {dname}, chunks of {steps} steps]", pc_, pp)
+
+
+# Full-degree LPC rows that `check_orders` holds kernel C to its plain
+# version on at N = 64 and 128.
+ORDER_LPC_ROWS = 8
+
+# Frame steps a chunk for `check_viterbi_edges`: one step, a ring stage,
+# across the ring's depth, and more.
+VITERBI_CHUNKS = (1, 2, 15, 17, 64)
+
+
+def check_orders(checks: Checks, dev) -> None:
+    """Kernels B, C and P at N = 33, 64 and 128 (ORDER_NS, orders 32-127),
+    each against its plain version, in both dtypes: B on 64 noisy frames of
+    2205 samples of the recording at `burg_tol`; C at `roots_tol` with
+    count and status equal, on `roots_order_cases` at each N and on those
+    frames' polynomials (as `roots_inputs` builds them; full degree, every
+    deflation round), all 64 at N = 33 and the first `ORDER_LPC_ROWS` at N
+    = 64 and 128 (the plain version's rounds are Python loops over the
+    coefficients, about 12 s a call at degree 100 on an H100). At N = 64
+    and 128 such rows do not settle in 20 Laguerre steps: the kernel and
+    the plain version agree there because they run the same operations on
+    the card's libm (the plain version on the CPU, another libm, parts from
+    both); and P on
+    each N's polynomials and C's roots of them and on their
+    `polish_edge_cases`, bit for bit (`check_polish`)."""
+    import torch
+
+    from voxtpu_torch.ops import burg, find_roots
+
+    for dt in (torch.float64, torch.float32):
+        dname = "f64" if dt == torch.float64 else "f32"
+        x = burg_large_frames(2205, 64, dt, dev)
+        for N in ORDER_NS:
+            tag = f"order {N - 1}, N = {N}, {dname}"
+            ck, sk = burg.burg(x, N - 1)
+            cp, sp = burg.burg_plain(x, N - 1)
+            checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
+            checks.equal(f"burg status [{tag}]", sk, sp)
+            lpc = roots_inputs(x, N - 1)
+            rk = find_roots.find_roots(*lpc)
+            check_polish((*lpc, rk[0], rk[1]), checks, tag)
+            _, re_, im_ = next(case for case in roots_order_cases(np.float64 if dt == torch.float64 else np.float32)
+                               if case[0] == f"N = {N}")
+            cases = [("roots_order_cases", (torch.as_tensor(re_, device=dev), torch.as_tensor(im_, device=dev)))]
+            keep = len(lpc[0]) if N == ORDER_NS[0] else ORDER_LPC_ROWS
+            cases.append((f"{keep} LPC rows", tuple(c[:keep].contiguous() for c in lpc)))
+            for rows, cc in cases:
+                rk, rp = find_roots.find_roots(*cc), find_roots.find_roots_plain(*cc)
+                for part, k, p in zip(("re", "im"), rk, rp):
+                    checks.close(f"roots {part} [{tag}, {rows}]", k, p, *roots_tol(dt))
+                checks.equal(f"roots count and status [{tag}, {rows}]", torch.stack(rk[2:]), torch.stack(rp[2:]))
+
+
+def check_high_order_path(head: np.ndarray, cfg, checks: Checks, dev) -> None:
+    """`analyze` at LPC order 40 (`--n-coeffs 40`) in float64 on the card
+    against the plain CPU path over `head`; and order 127 through the
+    formant stage on the card with a resonance buffer of 127 (the path's
+    holds 32, lib.rs:26), so that kernel D takes R = 127 rows, bit for bit
+    against its plain scan.
+
+    At order 40 the formants move by more than the slice test's tolerances
+    when the input moves by one ulp: the CPU path itself does (8.3e-4 Hz in
+    the frequencies, 4.4e-3 in the bandwidths over these 2 s, measured on
+    the CPU with this function's inputs), as Burg's sums and the roots'
+    libm calls round a few ulps apart on the card and the CPU. So the
+    formants are held to twice the CPU path's own spread between `head` and
+    its two one-ulp neighbours, measured here; every other key to the
+    slice test's tolerances."""
+    import torch
+
+    from voxtpu_torch.formants import formant_candidates
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.ops import formant_scan
+    from voxtpu_torch.pipeline import analyze
+
+    c40 = dataclasses.replace(cfg, formant=dataclasses.replace(cfg.formant, n_coeffs=40))
+    cpu = analyze(torch.as_tensor(head), c40)
+    spread = {"formant_freqs": 0.0, "formant_bws": 0.0}
+    for nudged in (np.nextafter(head, np.inf), np.nextafter(head, -np.inf)):
+        near = analyze(torch.as_tensor(nudged), c40)
+        spread = {k: max(v, float((near[k] - cpu[k]).abs().max())) for k, v in spread.items()}
+    print(f"  order 40, the CPU path's spread at one ulp of its input: {spread}")
+    compare_slice("order 40 f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), c40), cpu, cfg.sample_rate,
+                  checks, formant_atol={k: 2 * v for k, v in spread.items()})
+    frames = frame_signal(torch.as_tensor(head, device=dev), cfg.frame_len, cfg.hop)
+    rf, rb, status = formant_candidates(frames, cfg.sample_rate, 127, max_resonances=127)
+    est = torch.as_tensor(cfg.formant.estimates, dtype=rf.dtype, device=dev)
+    eb = torch.full_like(est, cfg.formant.estimate_bandwidth)
+    fk, bk = formant_scan.formant_scan(rf, rb, est, eb)
+    fp, bp = formant_scan.formant_scan_plain(rf.cpu(), rb.cpu(), est.cpu(), eb.cpu())
+    nres = int((rf > 0).sum(dim=1).max())
+    checks.true("order 127 reaches kernel D with R = 127", rf.shape[1] == 127,
+                f"({tuple(rf.shape)}; at most {nres} resonances live in a frame; {int(status.count_nonzero())} "
+                f"frames with a nonzero status)")
+    checks.equal(f"formant_scan freqs [order 127, R = 127, f64, {len(rf)} frames]", fk.cpu(), fp)
+    checks.equal(f"formant_scan bws [order 127, R = 127, f64, {len(rf)} frames]", bk.cpu(), bp)
+
+
 def check_new_kernels(args: dict, checks: Checks, label: str) -> dict:
     """Kernels E and F against their plain versions on the same inputs, for
     one dtype. Returns {kernel: max_abs_err}."""
@@ -1112,11 +1345,13 @@ def formant_scan_bound(rf, L: int) -> tuple[float, str]:
     return bound(F * R * 2 * 4 + F * L * 2 * 4, F * (min(L, 6) * R * 3 + 200) / F32_OPS_S)
 
 
-def polish_bound(args, iters: int = 2) -> tuple[float, str]:
+def polish_bound(args, iters: int = 2, passes_per_iter: int = 1) -> tuple[float, str]:
     """Kernel P's bound at its arguments: it reads the (F, N) coefficient
     and root pairs once and writes (F, N) pairs; each live slot (a root
-    that is not 0 + 0i; the others only copy) does 1 + 2 iters Horner passes
-    of N - 1 steps and iters Newton steps."""
+    that is not 0 + 0i; the others only copy) does 1 + passes_per_iter x
+    iters Horner passes of N - 1 steps and iters Newton steps. One pass an
+    iteration is the least this function needs (each point evaluated once,
+    as the kernel does); the plain version makes two."""
     c_re, _, z_re, z_im = args
     F, N = c_re.shape
     live = int(((z_re != 0) | (z_im != 0)).sum())
@@ -1126,7 +1361,7 @@ def polish_bound(args, iters: int = 2) -> tuple[float, str]:
     # pass 4 more (the top coefficient, the collapse). A Newton step does 23
     # beside its passes (den, dz, the finite and size test, the step, |p|^2
     # and its compare); a slot 5 more (the zero test, |p(z0)|^2).
-    per_slot = (1 + 2 * iters) * (141 * (N - 1) + 4) + 23 * iters + 5
+    per_slot = (1 + passes_per_iter * iters) * (141 * (N - 1) + 4) + 23 * iters + 5
     isz = c_re.element_size()
     return bound(6 * F * N * isz, live * per_slot / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
@@ -1277,6 +1512,30 @@ def roots_bound(c_re) -> tuple[float, str]:
     return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
 
 
+def viterbi_bound(local) -> tuple[float, str]:
+    """Kernel F's bound at (F, C) or (B, F, C) local scores, the work the
+    function needs: per frame step C^2 costs (division, log2, |.|, product,
+    difference and compare: 6 operations); it reads local, freq and voiced
+    once and writes the path. The pre-pass's records are this design's own
+    traffic, not the function's: `viterbi_records_ms` times them apart."""
+    shape = tuple(local.shape) if local.dim() == 3 else (1, *local.shape)
+    B, Fv, Cv = shape
+    isz = local.element_size()
+    ops = B * Fv * Cv * Cv * 6
+    nbytes = B * Fv * Cv * (2 * isz + 1) + B * Fv * 4
+    return bound(nbytes, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
+def viterbi_records_ms(local) -> float:
+    """The time to write kernel F's records (every frame step's, in
+    whatever chunks) and read them back at HBM3's rate; chunks whose
+    records stay in L2 can take less."""
+    from voxtpu_torch.ops.viterbi import launch_config
+
+    B, Fv, Cv = tuple(local.shape) if local.dim() == 3 else (1, *local.shape)
+    return 2 * B * (Fv - 1) * launch_config(B, Fv, Cv, local.dtype).record / HBM_BYTES_S * 1e3
+
+
 def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     """Each kernel's bound in float32 at the inputs it is timed on (see
     KERNELS): bytes are each input read once and each output written once;
@@ -1284,19 +1543,13 @@ def kernel_bounds(cli: dict, bench: dict, refine_stats: tuple) -> dict:
     operation, division or cos as one; A's from the kernel's stats on the
     same inputs (`refine_bound`)."""
     rf, _, ef, _ = cli["formant_scan"]
-    local = bench["viterbi"][0]
-    Fv, Cv = local.shape
-    # F: per frame C^2 costs (division, log2, |.|, product, difference and
-    # compare: 6 operations).
-    ops_f = Fv * Cv * Cv * 6
-    bytes_f = Fv * Cv * (4 + 4 + 1) + Fv * 4
     return {
         "refine": refine_bound(cli["refine"], refine_stats),
         "burg": burg_bound(*cli["burg"]),
         "find_roots": roots_bound(cli["find_roots"][0]),
         "formant_scan": formant_scan_bound(rf, ef.shape[0]),
         "ct_fused": ct_fused_bound(*bench["ct_fused"]),
-        "viterbi": bound(bytes_f, ops_f / F32_OPS_S),
+        "viterbi": viterbi_bound(bench["viterbi"][0]),
         "pitch_pre": pitch_pre_bound(bench["pitch_pre"]),
         "polish": polish_bound(cli["polish"]),
     }
@@ -1311,8 +1564,10 @@ def knife_rtol(f0, sample_rate: float, base: float):
     return torch.where((lag - lag.round()).abs() < KNIFE, 5e-3, base)
 
 
-def compare_slice(name, got: dict, want: dict, sample_rate: float, checks: Checks) -> None:
-    """The CPU slice test's tolerances (tests/test_torch_pipeline.py)."""
+def compare_slice(name, got: dict, want: dict, sample_rate: float, checks: Checks,
+                  formant_atol: dict | None = None) -> None:
+    """The CPU slice test's tolerances (tests/test_torch_pipeline.py);
+    formant_atol: {key: atol} in place of them for the formant keys."""
     import torch
 
     got = {k: v.cpu() for k, v in got.items()}
@@ -1324,8 +1579,8 @@ def compare_slice(name, got: dict, want: dict, sample_rate: float, checks: Check
         checks.true(f"{name} {key}", nbad == 0, f"max_abs_err {float(err.max()):.3e}, {nbad} outside")
     checks.close(f"{name} rms", got["rms"], want["rms"], 1e-12, 0.0)
     checks.close(f"{name} mfcc", got["mfcc"], want["mfcc"], 1e-9, 1e-9)
-    checks.close(f"{name} formant_freqs", got["formant_freqs"], want["formant_freqs"], 1e-7, 1e-5)
-    checks.close(f"{name} formant_bws", got["formant_bws"], want["formant_bws"], 1e-6, 1e-4)
+    for key, tol in (("formant_freqs", (1e-7, 1e-5)), ("formant_bws", (1e-6, 1e-4))):
+        checks.close(f"{name} {key}", got[key], want[key], *((0.0, formant_atol[key]) if formant_atol else tol))
     checks.equal(f"{name} status", got["status"], want["status"])
     checks.equal(f"{name} hnr_db finite", torch.isfinite(got["hnr_db"]), torch.isfinite(want["hnr_db"]))
 
@@ -1512,9 +1767,9 @@ def trace_once(fn) -> dict:
 
 
 def kernel_counts(trace: dict) -> dict:
-    """{profiler name of each kernel (KERNEL_ACTIVITY): its activities in trace}."""
+    """{profiler name of each kernel (TRACED_ACTIVITIES): its activities in trace}."""
     return {act: sum(c for name, (c, _us) in trace["by_name"].items() if act in name)
-            for act in KERNEL_ACTIVITY.values()}
+            for _, act in TRACED_ACTIVITIES}
 
 
 def profile_path(label: str, fn, card: str, want: dict, top: int | None = 12) -> dict:
@@ -1621,21 +1876,23 @@ def main() -> None:
         t_phase = now
 
     def run_counted(label: str, fn):
-        """fn() with every launch count set to 0 just before; returns its
-        result and the counts just after."""
+        """fn() with every launch count (and F's chunk count) set to 0 just
+        before; returns its result and the counts just after."""
         for w in wrappers.values():
             w.launches = 0
+        viterbi.viterbi_path.chunks = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: w.launches for name, w in wrappers.items()}
+        counts["viterbi_chunks"] = viterbi.viterbi_path.chunks
         print(f"{label}: launches {counts}")
         return out, counts
 
     def expect_launches(where: str, counts: dict, **zero_or_more) -> None:
         """Every kernel launched exactly once in a counted run, except the
         counts named in zero_or_more."""
-        for name, count in counts.items():
-            want = zero_or_more.get(name, 1)
+        for name in wrappers:
+            count, want = counts[name], zero_or_more.get(name, 1)
             checks.true(f"{name} launched {want} time(s) {where}", count == want, f"({count})")
 
     # --- 1. the card
@@ -1671,6 +1928,11 @@ def main() -> None:
         frames = stack_frames(build_log, name)
         checks.true(f"{name} kernels: 0 bytes stack frame and spill", len(frames) == count
                     and all(v == (0, 0, 0) for v in frames.values()), f"{sorted(frames.values())} over {len(frames)}")
+    for dt in (torch.float32, torch.float64):
+        for C in (33, 128):
+            vc = viterbi.launch_config(1, BENCH_FRAMES, C, dt)
+            print(f"viterbi_chain at C = {C}, {dt}: {vc.smem} bytes of dynamic shared memory a block ({vc.stages} "
+                  f"stages of {vc.record}-byte records), {vc.chain} chain threads + 32, {vc.lanes} lanes a candidate")
     kernels.library()
 
     # --- data: 126 tiles of the bundled recording
@@ -1707,6 +1969,10 @@ def main() -> None:
     check_burg_large(checks, dev)
     phase_took("phase 3c, kernel B on long frames")
 
+    print(f"kernels B, C and P vs plain at N = {', '.join(map(str, ORDER_NS))} (LPC orders to 127):")
+    check_orders(checks, dev)
+    phase_took("phase 3d, kernels B, C and P at high orders")
+
     # --- 4. the CLI path, float32
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
     torch.cuda.synchronize()
@@ -1725,6 +1991,9 @@ def main() -> None:
     card64 = analyze(torch.as_tensor(head, device=dev), cfg)
     cpu64 = analyze(torch.as_tensor(head), cfg)
     compare_slice("f64 card vs cpu", card64, cpu64, sr, checks)
+    print("LPC order 40 (--n-coeffs 40), float64 on the card vs the plain CPU path, first 2 s; order 127 into "
+          "kernel D:")
+    check_high_order_path(head, cfg, checks, dev)
     phase_took("phase 5, float64 parity")
 
     print("parity: float32 vs float64 on the card, whole signal:")
@@ -1756,6 +2025,10 @@ def main() -> None:
     e_inputs = {"bench": bench_args32["ct_fused"]}  # kernel E's (frames, nfft) on each path, float32
     del bframes64
     phase_took("phase 6, bench path and its kernels vs plain")
+
+    print("kernel F vs plain on its edge inputs:")
+    check_viterbi_edges(checks, dev)
+    phase_took("phase 6b, kernel F on edge inputs")
 
     print("bench path parity: float64 on the card vs the plain CPU path, first 2 s, Viterbi off and on:")
     for label, c in (("bench", bcfg), ("bench_viterbi", bvcfg)):
@@ -1931,7 +2204,7 @@ def main() -> None:
               f"{secs / (e2e[path] / 1e3):.1f} audio-s/s; before P (eager polish) {e2e_eager[path]:.2f} ms [{card}]")
     # Each trace must hold each kernel as often as the path's counted run
     # launched it (none of P before it).
-    want = {path: {act: launches_by_path[path][name] for name, act in KERNEL_ACTIVITY.items()} for path in runs}
+    want = {path: {act: launches_by_path[path][name] for name, act in TRACED_ACTIVITIES} for path in runs}
     for path, (fn, _secs) in runs.items():
         with eager_polish():
             profs_eager[path] = profile_path(f"{path} path, before P (eager polish)", fn, card,
@@ -1948,7 +2221,7 @@ def main() -> None:
         for label, prof, polish_count in ((f"{path} path profile before P", profs_eager[path], 0),
                                           (f"{path} path profile", profs[path], 1)):
             got = kernel_counts(prof)
-            for name, activity in KERNEL_ACTIVITY.items():
+            for name, activity in TRACED_ACTIVITIES:
                 n = polish_count if name == "polish" else launches_by_path[path][name]
                 checks.true(f"{label}: {activity} {n} time(s)", got[activity] == n,
                             f"({got[activity]}; trace {prof['traces']} of at most {PROFILE_TRACES})")
@@ -2141,6 +2414,52 @@ def main() -> None:
     e_row = next(r for r in rows if r["name"] == "ct_fused")
     e_row["by_path"] = e_paths
     e_row["f64_bench"] = e64
+    # F: its pre-pass and chain apart, and their sum, in each _viterbi
+    # path's trace above; at the bench_viterbi shapes, in both dtypes, its
+    # time, the chain's clocks a step and its floor (thread 0's clocks
+    # outside its waits for a record) and its bound.
+    f_row = next(r for r in rows if r["name"] == "viterbi")
+    f_split = {}
+    for path in ("bench_viterbi", "corpus_viterbi", "flagship_viterbi"):
+        split = {act: sum(us for name, (_c, us) in profs[path]["by_name"].items() if act in name) / 1e3
+                 for act in ("viterbi_costs", "viterbi_chain")}
+        f_split[f"{path} trace"] = split
+        print(f"  viterbi in the {path} path's trace: pre-pass {split['viterbi_costs']:.3f} ms + chain "
+              f"{split['viterbi_chain']:.3f} ms = {sum(split.values()):.3f} ms [{card}]")
+    vb64 = bench_kernel_inputs(frame_signal(sig64, bcfg.frame_len, bcfg.hop), analyze(sig64, bvcfg), bvcfg)["viterbi"]
+    for label, va in {"bench_viterbi": (lv, fv, vv), "bench_viterbi, float64": vb64[:3]}.items():
+        b3 = [t[None] for t in va]
+        clocks = torch.zeros(8, dtype=torch.int64, device=dev)
+        viterbi._launch(*b3, ojc, vuc, stamps=clocks)
+        loop, wait, steps, ns, *parts = (int(v) for v in clocks.cpu())
+        ghz = loop / ns
+        bound_ms, bound_by = viterbi_bound(va[0])
+        config = viterbi.launch_config(1, *va[0].shape, va[0].dtype)
+        f_split[label] = {
+            "ms": f_row["ms"] if label == "bench_viterbi" else event_ms(lambda: viterbi.viterbi_path(*va, ojc, vuc)),
+            "one_chunk_ms": event_ms(lambda: viterbi._launch(*b3, ojc, vuc, steps=b3[0].shape[1] - 1)),
+            "step_clocks": loop / steps, "wait_clocks": wait / steps, "sm_ghz": ghz,
+            "chain_floor_ms": (loop - wait) / ghz / 1e6,
+            "part_clocks": dict(zip(("argmax", "combine", "stores", "barrier"), (p / steps for p in parts))),
+            "bound_ms": bound_ms, "bound_by": bound_by, "records_ms": viterbi_records_ms(va[0]),
+            "frames": va[0].shape[0], "steps_a_chunk": config.steps, "scratch_bytes": config.scratch,
+        }
+        v = f_split[label]
+        print(f"  viterbi, {label}: {v['ms']:.3f} ms, {v['one_chunk_ms']:.3f} ms with every step in one chunk; chain "
+              f"{v['step_clocks']:.1f} clocks a step, {v['wait_clocks']:.1f} of them waiting for a record, "
+              f"{', '.join(f'{k} {c:.1f}' for k, c in v['part_clocks'].items())}, at {ghz:.3f} GHz: chain floor "
+              f"{v['chain_floor_ms']:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}; records written and read "
+              f"{v['records_ms']:.4f} ms ({config.steps} steps a chunk, {v['scratch_bytes']} bytes of scratch) "
+              f"[{card}]")
+    trace = f_split["bench_viterbi trace"]
+    f_row.update(prepass_ms=trace["viterbi_costs"], chain_ms=trace["viterbi_chain"],
+                 chain_floor_ms=f_split["bench_viterbi"]["chain_floor_ms"],
+                 records_ms=f_split["bench_viterbi"]["records_ms"], by_path=f_split)
+    # P's bound beside the bound of the plain version's 1 + 2 iters passes.
+    p_row = next(r for r in rows if r["name"] == "polish")
+    p_row["bound_plain_passes_ms"] = polish_bound(args32["polish"], passes_per_iter=2)[0]
+    print(f"  polish, CLI path: kernel {p_row['ms']:.4f} ms, bound {p_row['bound_ms']:.4f} ms (1 + iters passes a "
+          f"live slot), {p_row['bound_plain_passes_ms']:.4f} at the plain version's 1 + 2 iters [{card}]")
 
     phase_took("phase 10, times")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")

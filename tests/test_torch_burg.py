@@ -13,16 +13,21 @@ multiply-then-add is the kernel's FMA there; for float64 frames the model
 rounds twice where the kernel's FMA rounds once, inside the float64
 tolerance. The model is held to `burg_plain` at chip_smoke.py's
 tolerances (float32 rtol 1e-4 / atol 1e-5, float64 1e-10 / 1e-12), with
-the status equal.
+the status equal, up to order 127, where warp 0 keeps 4 coefficients a
+lane. `burg_plain` is held to voxtpu's Burg (`voxtpu.lpc.burg`, jnp) at
+orders 40 and 127 in float64 at the same tolerance, and runs any order
+on the CPU, where the card stops at 127 as voxtpu's Pallas kernel does.
 """
 
 import os
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from voxtpu.lpc import burg as jax_burg
 
 from voxtpu_torch.io_wav import read_wav
 from voxtpu_torch.ops import burg as B
@@ -72,7 +77,7 @@ def _model_burg(x: np.ndarray, order: int, threads: int, width: int) -> tuple[np
             total = total + p[:, w, 0]
         return total
 
-    a = np.zeros((R, 64), dt)
+    a = np.zeros((R, 128), dt)
     bad = np.zeros(R, bool)
     num, den = partials(npairs)
     for i in range(1, order + 1):
@@ -169,7 +174,7 @@ def test_model_past_the_switch(dt):
 
 
 @pytest.mark.parametrize("dt", [np.float32, np.float64])
-@pytest.mark.parametrize("order", [1, 64])
+@pytest.mark.parametrize("order", [1, 64, 127])
 def test_model_orders(order, dt):
     _check(_frames(2205, 2, dt), order)
 
@@ -225,7 +230,8 @@ def test_constants_mirror_cuda_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert const("kMaxOrder") == B._MAX_ORDER
+    assert const("kMaxOrder") == B._MAX_ORDER == 127  # voxtpu/ops/burg_pallas.py:87-88
+    assert 32 * const("kCoefRegs") > B._MAX_ORDER  # warp 0 holds every coefficient
     assert B._WIDTH == {torch.float32: const("kWidthF32"), torch.float64: const("kWidthF64")}
     assert B._SHARED_WIDTH == const("kSharedWidth")
     assert B._MAX_THREADS == const("kMaxThreads")
@@ -245,3 +251,24 @@ def test_chip_smoke_long_frames_take_their_layout():
     for dname, width in (("float32", 35), ("float64", 23)):
         cases = {(n, shared) for d, n, _, shared in BURG_LARGE if d == dname}
         assert (512 * width + 1, False) in cases and any(shared for _, shared in cases)
+
+
+@pytest.mark.parametrize("order", [40, 127])
+def test_plain_matches_jax_at_high_orders(order):
+    """Orders the card took only up to 64 before: the plain version against
+    voxtpu's jnp Burg on the recording's frames, float64."""
+    x = _frames(2205, 4, np.float64)
+    got, gstatus = B.burg_plain(torch.as_tensor(x), order)
+    want, wstatus = jax_burg(jnp.asarray(x), order, backend="jnp")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-12)
+    np.testing.assert_array_equal(gstatus.numpy(), np.asarray(wstatus))
+
+
+def test_any_order_on_cpu():
+    """Above the card's 127 the CPU runs the plain version, uncounted."""
+    x = torch.as_tensor(_frames(512, 2, np.float64))
+    before = B.burg.launches
+    got = B.burg(x, 160)
+    want = B.burg_plain(x, 160)
+    assert B.burg.launches == before and got[0].shape == (2, 160)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -96,6 +96,14 @@ def f64_pair(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def order40_pair(tmp_path_factory):
+    """LPC order 40, above the orders the card took before the roots and
+    Burg kernels grew to 127: N = 41 polynomials, on the CPU as voxtpu runs
+    any order."""
+    return _both(tmp_path_factory, "order40", WAV, ["--f64", "--fmax", "500", "--n-coeffs", "40"])
+
+
+@pytest.fixture(scope="module")
 def viterbi_pair(tmp_path_factory):
     return _both(tmp_path_factory, "viterbi", WAV, ["--f64", "--viterbi"])
 
@@ -123,6 +131,13 @@ KEYS = ["rms", "mfcc", "f0", "f0_strength", "hnr_db", "formant_freqs", "formant_
 @pytest.mark.parametrize("key", KEYS)
 def test_analyze_f64_npz_matches_voxtpu(f64_pair, key):
     got, want = f64_pair
+    assert got.keys() == want.keys()
+    _assert_key(key, got, want, 11025.0)
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_analyze_order40_npz_matches_voxtpu(order40_pair, key):
+    got, want = order40_pair
     assert got.keys() == want.keys()
     _assert_key(key, got, want, 11025.0)
 

@@ -14,11 +14,16 @@ polynomial, a lone top coefficient with under- and overflowing roots,
   tolerance of tests/test_torch_formants.py's polish test), each edge row
   on its own, N in {2, 5, 14};
 - (c) `_model_polish`, a per-slot scalar model in NumPy that follows
-  csrc/polish.cu's operation order line for line, equals it bit for bit:
-  the CPU's only check of the kernel's order;
+  csrc/polish.cu's operation order line for line (1 + iters Horner passes,
+  each pass's value deciding the step before and its derivative giving the
+  step after), equals it bit for bit: the CPU's only check of the
+  kernel's order; and `_three_pass_polish`, the plain version with each
+  point evaluated once as the kernel does, equals it bit for bit on
+  random order-13 frames, the edge rows and N = 128, in both dtypes: the
+  proof that the two passes the kernel drops change no bit;
 - (d) the wrapper's argument checks, and no launch counted on the CPU;
-- (e) the split constant and every launcher's argument kinds mirror the
-  CUDA sources.
+- (e) the split constant, the register instantiation's N and the card's
+  largest N, and every launcher's argument kinds mirror the CUDA sources.
 """
 
 import os
@@ -280,15 +285,15 @@ def _model_polish(c_re, c_im, z_re, z_im, iters=2, max_step=0.5):
         best_n = (pr * pr) + (pi * pi)
         cur_r, cur_i = zr0, zi0
         for _ in range(iters):
-            pr, pi, dpr, dpi = horner_df(cre, cim, cur_r, cur_i)
+            # p(cur) and p'(cur): the last pass was at cur
             den = (dpr * dpr) + (dpi * dpi)
             dzr = ((pr * dpr) + (pi * dpi)) / den
             dzi = ((pi * dpr) - (pr * dpi)) / den
             if np.isfinite(dzr) and np.isfinite(dzi) and ((dzr * dzr) + (dzi * dzi) <= ms2):
                 cur_r = cur_r - dzr
                 cur_i = cur_i - dzi
-            prn, pin, _, _ = horner_df(cre, cim, cur_r, cur_i)
-            n_new = (prn * prn) + (pin * pin)
+            pr, pi, dpr, dpi = horner_df(cre, cim, cur_r, cur_i)
+            n_new = (pr * pr) + (pi * pi)
             if n_new < best_n:
                 best_r, best_i, best_n = cur_r, cur_i, n_new
         out_re[row, slot], out_im[row, slot] = best_r, best_i
@@ -305,6 +310,84 @@ def test_kernel_order_model_equals_plain(dt):
             model = _model_polish(*(t.numpy() for t in args), max_step=max_step)
         for g, m in zip(got, model):
             assert torch.equal(_bits(g), _bits(torch.from_numpy(m)))
+
+
+def _three_pass_polish(c_re, c_im, z_re, z_im, iters=2, max_step=0.5):
+    """`polish.polish_roots_plain` with each point evaluated once: the pass
+    at z0 also gives the first step, and each pass after a step also gives
+    the next step (the plain version evaluates that point twice)."""
+    zr0, zi0 = z_re, z_im
+    live = (zr0 != 0) | (zi0 != 0)
+    pr, pi, dpr, dpi = polish._horner_df(c_re, c_im, zr0, zi0)
+    best_r, best_i = zr0, zi0
+    best_n = pr * pr + pi * pi
+    cur_r, cur_i = zr0, zi0
+    ms2 = max_step * max_step
+    for _ in range(iters):
+        den = dpr * dpr + dpi * dpi
+        dzr = (pr * dpr + pi * dpi) / den
+        dzi = (pi * dpr - pr * dpi) / den
+        ok = torch.isfinite(dzr) & torch.isfinite(dzi) & (dzr * dzr + dzi * dzi <= ms2)
+        cur_r = torch.where(ok, cur_r - dzr, cur_r)
+        cur_i = torch.where(ok, cur_i - dzi, cur_i)
+        pr, pi, dpr, dpi = polish._horner_df(c_re, c_im, cur_r, cur_i)
+        n_new = pr * pr + pi * pi
+        better = n_new < best_n
+        best_r = torch.where(better, cur_r, best_r)
+        best_i = torch.where(better, cur_i, best_i)
+        best_n = torch.where(better, n_new, best_n)
+    return torch.where(live, best_r, zr0), torch.where(live, best_i, zi0)
+
+
+def _random_lpc(frames: int, order: int, dt, seed: int) -> tuple:
+    """(c_re, c_im, z_re, z_im): Burg LPC of seeded noise frames, 512
+    samples each, their reversed monic polynomials (N = order + 1) and
+    roots."""
+    x = np.random.default_rng(seed).standard_normal((frames, 512)) * hann(512)
+    coeffs, _ = burg_plain(torch.as_tensor(x, dtype=dt), order)
+    c_re = torch.cat([coeffs.flip(-1), torch.ones_like(coeffs[:, :1])], dim=-1).contiguous()
+    c_im = torch.zeros_like(c_re)
+    z_re, z_im, _, _ = find_roots_plain(c_re, c_im)
+    return c_re, c_im, z_re, z_im
+
+
+def _n128(dt) -> tuple:
+    """N = 128: two rows of 127 roots spread near the circle (no root finder
+    needed: the roots are the polish's start) and their real polynomial, and
+    the zero, NaN and infinite slots of the edge rows."""
+    rng = np.random.default_rng(3)
+    rows_c, rows_z = [], []
+    for _ in range(2):
+        ang = np.pi * (np.arange(63) + 0.5) / 63 + rng.uniform(-0.01, 0.01, 63)
+        r = 0.9 * np.exp(1j * ang)
+        roots = np.concatenate([r, r.conj(), [0.8]])
+        rows_c.append(np.poly(roots).real[::-1])
+        rows_z.append(roots * (1 + 1e-4 * rng.standard_normal(127)))
+    c_re = torch.as_tensor(np.stack(rows_c), dtype=dt)
+    z = np.concatenate([np.stack(rows_z), np.zeros((2, 1))], axis=1)
+    z_re = torch.as_tensor(z.real, dtype=dt)
+    z_im = torch.as_tensor(z.imag, dtype=dt)
+    z_re[1, 5], z_re[1, 6], z_im[1, 7] = float("nan"), float("inf"), -0.0
+    return c_re.contiguous(), torch.zeros_like(c_re), z_re.contiguous(), z_im.contiguous()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["two-vowels LPC, order 13", "random LPC, order 13", "edge rows", "N = 128"])
+def test_three_passes_equal_plain(case, dt):
+    if case == "two-vowels LPC, order 13":
+        args = _two_vowels_lpc(64, 13, dt)
+    elif case == "random LPC, order 13":
+        args = _random_lpc(64, 13, dt, seed=5)
+    elif case == "edge rows":
+        args = polish_edge_cases(*_random_lpc(8, 13, dt, seed=6), rows=8)
+    else:
+        args = _n128(dt)
+    for iters, max_step in ((2, 0.5), (1, 0.5), (3, 0.3), (0, 0.5)):
+        got = _three_pass_polish(*args, iters=iters, max_step=max_step)
+        with np.errstate(all="ignore"):
+            want = polish.polish_roots_plain(*args, iters=iters, max_step=max_step)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w)), (case, iters)
 
 
 # ---- (d) the wrapper
@@ -348,6 +431,8 @@ def test_split_constant_mirrors_the_cuda_source():
         src = f.read()
     m = re.search(r"constexpr double kSplit = ([0-9.]+);", src)
     assert m and float(m.group(1)) == polish._SPLIT == 4097.0
+    const = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1)) for k in ("kN", "kMaxN")}
+    assert (const["kN"], const["kMaxN"]) == (polish._N, polish._MAX_N) == (14, 128)
 
 
 _KINDS = {"const void*": "p", "void*": "p", "int": "i", "double": "d"}

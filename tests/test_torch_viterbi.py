@@ -7,7 +7,21 @@ decides, 30% unvoiced candidates, 10% invalid lanes, frame counts from 1 to
 silence-aware intensity, against voxtpu's lax.scan DP ("jnp") and its
 Pallas kernel in interpret mode: the port's f0 and strength along the path
 must equal voxtpu's exactly.
+
+Kernel F (csrc/viterbi.cu) runs on the card only; here its pre-pass's
+plain form (`transition_costs_plain`) is held bit for bit to the costs the
+plain DP forms at each step (random, NaN, -inf, all-unvoiced and
+alternating rows, both dtypes), a model of its chain's argmax split (G lanes
+a candidate, chunks of 16 items a lane reduced as tournaments, then
+shuffles) to torch.max's
+first-win index and value bits, its launch rule (`launch_config`) to
+csrc/viterbi.cu's constants and its bank, warp, stage and scratch
+properties for every C, and its chunks of frame steps (the bounded
+scratch) to the one-pass DP.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -143,3 +157,240 @@ def test_pitch_track_numpy_input_goes_to_the_card():
         pytest.skip("a CUDA device is present: the input would run there")
     with pytest.raises(NoCudaDevice, match="device='cpu'"):
         viterbi.pitch_track(np.zeros((3, 512)), 11025.0)
+
+
+# ---- kernel F's pre-pass, argmax split and launch rule (csrc/viterbi.cu)
+
+CU = Path(__file__).resolve().parent.parent / "voxtpu_torch" / "csrc" / "viterbi.cu"
+DTYPES = [torch.float32, torch.float64]
+
+
+def _dp_inputs(B, F, C, dt, seed=0, case="random"):
+    """(local, freq, voiced) as `path_inputs` builds them: freq 1.0 where a
+    candidate is unvoiced, strengths quantised to 0.1 so that totals tie."""
+    rng = np.random.default_rng(seed)
+    voiced = rng.random((B, F, C)) < 0.7
+    if case == "all unvoiced":
+        voiced[:] = False
+    if case == "alternating":
+        voiced = np.broadcast_to((np.arange(F) % 2 == 0)[None, :, None], (B, F, C)).copy()
+    freq = np.where(voiced, rng.uniform(60.0, 600.0, (B, F, C)), 1.0)
+    local = np.round(rng.uniform(0.0, 1.0, (B, F, C)), 1)
+    local[rng.random((B, F, C)) < 0.1] = -np.inf
+    if case == "NaN":
+        local[:, F // 2, 1] = np.nan
+        freq[:, 1, 2] = np.nan
+        voiced[:, 1, 2] = True
+    if case == "-inf":
+        local[:, 1:3] = -np.inf
+    return (torch.as_tensor(local, dtype=dt), torch.as_tensor(freq, dtype=dt), torch.as_tensor(voiced))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", ["random", "NaN", "-inf", "all unvoiced", "alternating"])
+def test_transition_costs_plain_equal_the_dp_costs(case, dt):
+    """The pre-pass's plain form, every step at once, gives bit for bit the
+    costs `viterbi_path_plain` forms at each step (as the DP forms them
+    there, recomputed here)."""
+    local, freq, voiced = _dp_inputs(3, 40, 33, dt, case=case)
+    ojc, vuc = 0.35, 0.14
+    got = vop.transition_costs_plain(freq, voiced, ojc, vuc)
+    assert got.shape == (3, 39, 33, 33) and got.dtype == dt
+    vuc_t, zero = torch.tensor(vuc, dtype=dt), torch.zeros((), dtype=dt)
+    for t in range(1, 40):
+        vp, vc = voiced[:, t - 1, :, None], voiced[:, t, None, :]
+        jump = torch.abs(torch.log2(freq[:, t - 1, :, None] / freq[:, t, None, :]))
+        want = torch.where(vp & vc, ojc * jump, torch.where(vp ^ vc, vuc_t, zero))
+        assert torch.equal(_bits(got[:, t - 1]), _bits(want)), t
+    if case == "all unvoiced":
+        assert not got.any()
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
+
+
+def _later(b, ib, a, ia):
+    """csrc/viterbi.cu later: (b, ib), after (a, ia) in index, wins by a
+    larger value or as a NaN over a number."""
+    return (b, ib) if b > a or (np.isnan(b) and not np.isnan(a)) else (a, ia)
+
+
+def _model_chain_argmax(totals: np.ndarray, G: int, chunk: int = 16):
+    """viterbi_chain's argmax over one column of C totals: lane g of the G
+    lanes takes the run of items k = 0, 1, ... (i = g L + k, L = ceil(C /
+    G); a lane past the last candidate starts at -inf and has none); item 0
+    starts its argmax, then each chunk of 16 items (past the run -inf) is
+    reduced as a tournament over adjacent pairs and joined after; the
+    group's lanes combine by shuffles down (off = 1, 2, ..., G / 2, so that
+    lane g + off holds the runs after lane g's; a lane whose partner lies
+    past the group keeps its own). Every join is of
+    index-ordered pairs (`_later`). Returns lane 0's (value, index)."""
+    C = len(totals)
+    L = -(-C // G)
+    ninf = totals.dtype.type(-np.inf)
+    lanes = []
+    for g in range(G):
+        items = min(L, C - g * L)
+        best = (totals[g * L], g * L) if items > 0 else (ninf, g * L)
+        for k0 in range(1, items, chunk):
+            pairs = [(totals[g * L + k], g * L + k) if k < items else (ninf, g * L + k) for k in range(k0, k0 + chunk)]
+            w = 1
+            while w < chunk:
+                for c in range(0, chunk, 2 * w):
+                    pairs[c] = _later(*pairs[c + w], *pairs[c])
+                w *= 2
+            best = _later(*pairs[0], *best)
+        lanes.append(best)
+    off = 1
+    while off < G:
+        lanes = [_later(*lanes[l + off], *lanes[l]) if l + off < G else lanes[l] for l in range(G)]
+        off *= 2
+    return lanes[0]
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 32, 33, 64, 65, 128])
+def test_chain_argmax_split_is_first_win(C, dt):
+    """Every split of i the kernel makes finds torch.max's first-win index
+    and its value's bits: ties, NaNs (the first NaN wins), all -inf (index
+    0) and -0.0 against +0.0."""
+    G = vop.launch_config(1, 2, C, torch.float32 if dt == np.float32 else torch.float64).lanes
+    rng = np.random.default_rng(C)
+    rows = [np.round(rng.uniform(-1, 1, C), 1).astype(dt) for _ in range(40)]
+    rows.append(np.full(C, -np.inf, dt))
+    rows.append(np.where(np.arange(C) % 3 == 1, np.nan, 0.5).astype(dt))
+    rows.append(np.where(np.arange(C) % 2 == 0, -0.0, 0.0).astype(dt))
+    rows.append(np.where(np.arange(C) >= C // 2, np.nan, -np.inf).astype(dt))
+    for row in rows:
+        value, index = _model_chain_argmax(row, G)
+        want_v, want_i = torch.max(torch.as_tensor(row), dim=0)
+        assert index == int(want_i), (row, index, int(want_i))
+        assert np.asarray(value).tobytes() == row[int(want_i)].tobytes()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CU.read_text()).group(1))
+
+
+def test_launch_config_mirrors_the_cuda_source():
+    assert vop._MAX_C == _cu_const("kMaxC")
+    assert vop._CHAIN_THREADS == _cu_const("kChainThreads")
+    assert vop._MAX_STAGES == _cu_const("kMaxStages")
+    assert vop._SMEM_LIMIT == _cu_const("kSmemLimit")
+    src = CU.read_text()
+    for line in ("while (c.lanes > C || c.lanes * C > kChainThreads) c.lanes >>= 1;",
+                 "c.run = (C + c.lanes - 1) / c.lanes;",
+                 "c.pitch = (c.run - 1 + kChunk - 1) / kChunk * kChunk + 1;",
+                 "c.record = round_up((C * c.lanes * c.pitch + C) * isz, 16);",
+                 "const int fixed = round_up(2 * kScores * isz, 16) + 2 * kMaxStages * 8 + 16;",
+                 "c.per = fit >= 4 ? 2 : 1;", "c.smem = c.stages * c.per * c.record + fixed;",
+                 "constexpr int kScores = kMaxC + 32;"):
+        assert line in src
+    assert vop._SCORES == vop._MAX_C + 32 and vop._CHUNK == _cu_const("kChunk")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_launch_config_is_a_pure_rule(dt):
+    """For every C: G a power of two with G <= C and G C <= 128 (the most
+    such), the chain's whole warps (at most 4), runs of L = ceil(C / G) at
+    a pitch P that holds every 16-item chunk a lane reads (1 + 16 ceil((L -
+    1) / 16)) and is odd, so that a warp's 32 lanes, lane (j, g) reading row
+    j's run g at (j G + g) P + k, read 32 distinct banks, a score row's
+    G P slots within its 160, records of whole 16 bytes, 1 to 8 stages of
+    1 or 2 records (2 where two stages of two fit) within the block's
+    shared memory, and the scratch of B (F - 1) records (one chunk here)."""
+    isz = dt.itemsize
+    for C in range(1, 129):
+        c = vop.launch_config(3, 50, C, dt)
+        assert c == vop.launch_config(3, 50, C, dt)
+        G = c.lanes
+        assert G & (G - 1) == 0 and G <= C and G * C <= 128 and (2 * G > C or 2 * G * C > 128)
+        assert c.chain == -(-G * C // 32) * 32 <= 128
+        assert c.run == -(-C // G) and c.pitch % 2 == 1 and c.pitch >= c.run
+        assert all(k0 + 15 < c.pitch for k0 in range(1, c.run, 16)) and G * c.pitch <= vop._SCORES
+        assert all(len({(lane * c.pitch + k) % 32 for lane in range(32)}) == 32 for k in range(c.run))
+        assert c.record % 16 == 0 and c.record >= (C * G * c.pitch + C) * isz
+        assert 1 <= c.stages <= 8 and c.per in (1, 2) and c.smem <= vop._SMEM_LIMIT
+        assert c.per == 1 or c.stages >= 2
+        assert c.scratch == 3 * 49 * c.record
+    c33 = vop.launch_config(1, 15369, 33, dt)
+    assert (c33.lanes, c33.chain, c33.run, c33.pitch, c33.per, c33.stages) == (2, 96, 17, 17, 2, 8)
+    assert vop.launch_config(1, 9, 128, torch.float64).stages == 1  # one record: the chain releases, then waits
+    assert c33.record == (4624 if dt == torch.float32 else 9248)
+    assert vop.launch_config(2, 1, 33, dt).scratch == 0
+    for bad in ((1, 5, 0), (1, 5, 129), (1, 0, 5)):
+        with pytest.raises(ValueError):
+            vop.launch_config(*bad, dt)
+    with pytest.raises(TypeError):
+        vop.launch_config(1, 5, 5, torch.float16)
+
+
+def test_wrapper_counts_clocks_on_the_card_only():
+    """The chain's clock probe and the chunk choice are reached through the
+    private launcher, which takes CUDA tensors only: viterbi_path's
+    signature is the plain version's."""
+    local, freq, voiced = _dp_inputs(1, 5, 4, torch.float64)
+    with pytest.raises(ValueError, match="card only"):
+        vop._launch(local, freq, voiced, 0.35, 0.14, stamps=torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        vop.viterbi_path(local, freq, voiced, 0.35, 0.14, clocks=torch.zeros(8, dtype=torch.int64))
+
+
+def _host_chunks(F, steps):
+    """The (t0, t1) frame-step ranges of csrc/viterbi.cu's host loop."""
+    out, t0 = [], 1
+    while True:
+        t1 = F if F - t0 < steps else t0 + steps
+        out.append((t0, t1))
+        if t1 == F:
+            return out
+        t0 += steps
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_launch_config_bounds_the_scratch(dt):
+    """Chunks of frame steps keep the records within 16 MiB, or 64 records
+    a recording where 16 MiB holds fewer, at any length: 3,628 steps a
+    chunk (float32; 1,814 float64) at the bench path's 33 candidates, 226
+    (113) for the 16-recording corpus block, 64 at 16 recordings of C = 128
+    in float64; the host loop's chunks tile the steps 1 .. F - 1."""
+    for B, F, C in ((1, 15369, 33), (1, 30741, 33), (16, 972, 33), (16, 600_000, 128), (4096, 20, 128),
+                    (2, 1, 33), (3, 50, 5)):
+        c = vop.launch_config(B, F, C, dt)
+        assert c.scratch == B * c.steps * c.record
+        assert c.scratch <= max(vop._SCRATCH_LIMIT, vop._MIN_STEPS * B * c.record)
+        assert c.steps == (0 if F == 1 else min(F - 1, max(64, vop._SCRATCH_LIMIT // (B * c.record))))
+        chunks = _host_chunks(F, c.steps)
+        assert chunks[0][0] == 1 and chunks[-1][1] == F
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(0 < t1 - t0 <= c.steps for t0, t1 in chunks) or F == 1
+        assert len(chunks) == vop._chunks(F, c.steps)
+    f32 = dt == torch.float32
+    assert vop.launch_config(1, 15369, 33, dt).steps == (3628 if f32 else 1814)
+    assert vop.launch_config(16, 972, 33, dt).steps == (226 if f32 else 113)
+    assert vop.launch_config(16, 600_000, 128, torch.float64).steps == 64
+    assert vop._SCRATCH_LIMIT == 16 << 20 and vop._MIN_STEPS == 64
+
+
+@pytest.mark.parametrize("steps", [1, 2, 7, 16, 39])
+def test_chunks_carrying_scores_equal_one_pass(steps):
+    """The DP run chunk by chunk as the host loop splits it, each chunk
+    starting from the scores the one before left (the kernel's carry), gives
+    the one-pass plain path bit for bit: the chunks change no operation."""
+    local, freq, voiced = _dp_inputs(3, 40, 7, torch.float64)
+    B, F, C = local.shape
+    costs = vop.transition_costs_plain(freq, voiced, 0.35, 0.14)
+    score, bps = local[:, 0], []
+    for t0, t1 in _host_chunks(F, steps):
+        for t in range(t0, t1):
+            best, arg = torch.max(score[:, :, None] - costs[:, t - 1], dim=1)
+            bps.append(arg)
+            score = local[:, t] + best
+    c = torch.argmax(score, dim=-1)
+    path = [c]
+    for arg in reversed(bps):
+        c = torch.gather(arg, 1, c[:, None])[:, 0]
+        path.append(c)
+    got = torch.stack(path[::-1], dim=1).to(torch.int32)
+    assert torch.equal(got, vop.viterbi_path_plain(local, freq, voiced, 0.35, 0.14))

@@ -11,7 +11,7 @@ the kernels as chip_smoke.py does):
 For each row (corpus_viterbi and bench before kernel P, corpus after it,
 float32, the inputs of chip_smoke.py's phases 6 and 7) it takes `--traces`
 traces with pads of 0 s and as many with `chip_smoke.PROFILE_PAD_S`, and
-prints per pad the traces whose kernels (chip_smoke.KERNEL_ACTIVITY) do
+prints per pad the traces whose kernels (chip_smoke.TRACED_ACTIVITIES) do
 not appear exactly as often as a counted run launched them or whose
 device-activity count differs from the row's most common one, each with
 the activity names whose counts differ from a usual trace. The last line
@@ -80,9 +80,12 @@ def main() -> None:
             torch.cuda.synchronize()
             for w in wrappers.values():
                 w.launches = 0
+            wrappers["viterbi"].chunks = 0
             fn()
             torch.cuda.synchronize()
-            want = {cs.KERNEL_ACTIVITY[name]: w.launches for name, w in wrappers.items()}
+            counts = {name: w.launches for name, w in wrappers.items()}
+            counts["viterbi_chunks"] = wrappers["viterbi"].chunks
+            want = {act: counts[name] for name, act in cs.TRACED_ACTIVITIES}
             traces = {}
             for pad in (0.0, pad_s):
                 cs.PROFILE_PAD_S = pad

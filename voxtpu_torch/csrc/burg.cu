@@ -54,8 +54,10 @@
 //   3. one __syncthreads();
 //   4. every thread sums the warps' partials in warp order and computes
 //      bad and c_i itself (no thread-0 section); warp 0 updates the
-//      coefficients, lane j holding a[j] and a[j + 32] and reading the
-//      mirrored a[i - 2 - j] by shuffle;
+//      coefficients, lane j holding a[j + 32 k] for k < 4 (orders up to
+//      127, the reference's own TPU limit) and reading each mirrored
+//      a[i - 2 - j - 32 k] by shuffle: the four registers shuffled from one
+//      source lane, (i - 2 - j) mod 32, then the right one selected;
 //   5. each thread updates its pairs in registers from the old values, the
 //      last one from its neighbour's first pair (lane + 1 by shuffle, lane
 //      31 from the next warp's slot), and in the same pass takes the next
@@ -74,7 +76,8 @@
 
 namespace {
 
-constexpr int kMaxOrder = 64;
+constexpr int kMaxOrder = 127;
+constexpr int kCoefRegs = 4;  // warp 0's coefficients a lane: 32 kCoefRegs > kMaxOrder
 constexpr int kStatusLpcDenumNonpos = 1;  // voxtpu_torch.errors.LPC_DENUM_NONPOS
 // Register layout: each dtype's width c (chosen by tools/burg_split.py on
 // an H100). Shared-memory layout: its width.
@@ -248,8 +251,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     first_sums<true, C, kUnroll>(rows, npairs - k0, num, den);
   }
 
-  T a0 = T(0);  // warp 0: coefficient `lane`
-  T a1 = T(0);  // and `lane + 32`
+  T a[kCoefRegs] = {};  // warp 0: coefficient `lane + 32 k` in a[k]
   bool bad = false;
   for (int i = 1; i <= P; ++i) {
     for (int off = 16; off > 0; off >>= 1) {
@@ -281,15 +283,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
     if (warp == 0) {
       // a[q] = a[q] - ci a[i - 2 - q] for q < i - 1; a[i - 1] = ci. The
-      // mirror of q = lane + 32 is below 32, as P <= 64.
-      const int r0 = i - 2 - lane;
-      const int r1 = r0 - 32;
-      const T m00 = __shfl_sync(0xffffffffu, a0, r0 & 31);
-      const T m01 = __shfl_sync(0xffffffffu, a1, r0 & 31);
-      const T m10 = __shfl_sync(0xffffffffu, a0, r1 & 31);
-      const T mir0 = r0 >= 32 ? m01 : m00;
-      a0 = lane < i - 1 ? a0 - ci * mir0 : (lane == i - 1 ? ci : a0);
-      a1 = lane + 32 < i - 1 ? a1 - ci * m10 : (lane + 32 == i - 1 ? ci : a1);
+      // mirrors r = i - 2 - lane - 32 k of one lane's coefficients all sit
+      // on source lane (i - 2 - lane) mod 32, in register r / 32.
+      const int src = (i - 2 - lane) & 31;
+      T m[kCoefRegs];
+#pragma unroll
+      for (int k = 0; k < kCoefRegs; ++k) m[k] = __shfl_sync(0xffffffffu, a[k], src);
+#pragma unroll
+      for (int k = 0; k < kCoefRegs; ++k) {
+        const int q = lane + 32 * k;
+        const int r = i - 2 - q;
+        T mir = m[0];
+#pragma unroll
+        for (int s = 1; s < kCoefRegs; ++s) mir = r >= 32 * s ? m[s] : mir;
+        a[k] = q < i - 1 ? a[k] - ci * mir : (q == i - 1 ? ci : a[k]);
+      }
     }
     if (i == P) break;
 
@@ -310,8 +318,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   if (warp == 0) {
     T* out = coef_out + static_cast<long>(blockIdx.x) * P;
-    if (lane < P) out[lane] = -a0;
-    if (lane + 32 < P) out[lane + 32] = -a1;
+#pragma unroll
+    for (int k = 0; k < kCoefRegs; ++k) {
+      if (lane + 32 * k < P) out[lane + 32 * k] = -a[k];
+    }
     if (lane == 0) status_out[blockIdx.x] = bad ? kStatusLpcDenumNonpos : 0;
   }
 }

@@ -33,13 +33,18 @@
 // local memory (800 bytes a thread in float32, 1,584 in float64), and
 // reloaded each coefficient from there in every Horner step. Here N is a
 // template argument: kN = 14, the order-13 polynomials of every
-// configuration the repo runs, and one capacity instantiation kMaxN = 32
-// for any other N, whose loops run to the capacity and are guarded by the
-// runtime N. Every loop over coefficients is unrolled, so every array index
-// is a constant and the polynomial lives in registers (in shared memory, one
-// column a thread, for the capacity, whose float64 pairs would spill); the
-// shift by the lowest nonzero index is a barrel of static selects; each
-// root goes straight to its output slot. The angle of the square root lies
+// configuration the repo runs, whose loops over coefficients are all
+// unrolled, so every array index is a constant and the polynomial lives in
+// registers; the shift by the lowest nonzero index is a barrel of static
+// selects; each root goes straight to its output slot. Any other N up to
+// kMaxN = 128 (LPC orders up to 127, the reference's own TPU limit) runs
+// the capacity instantiation: the same operations in the same order, its
+// loops bounded by the runtime N, the pairs in dynamic shared memory, one
+// column a thread, pair j of thread t at [j kCapThreads + t]. Its blocks
+// are kCapThreads = 32 threads, so the columns take N x 32 pairs: 64 KB in
+// float64 and 32 KB in float32 at N = 128 (in blocks of 64 they would take
+// 128 KB, one block an SM), and the launcher raises the block's dynamic
+// shared-memory limit above 48 KB. The angle of the square root lies
 // in [-pi/2, pi/2], which drops the Payne-Hanek reduction (a local array)
 // that CUDA's accurate sin and cos keep for huge arguments, and one sincos
 // replaces the two calls with the same bits. Each iteration tests the
@@ -55,9 +60,10 @@
 
 namespace {
 
-constexpr int kN = 14;       // voxtpu_torch.ops.find_roots._N
-constexpr int kMaxN = 32;    // voxtpu_torch.ops.find_roots._MAX_N
-constexpr int kThreads = 64; // voxtpu_torch.ops.find_roots._THREADS
+constexpr int kN = 14;           // voxtpu_torch.ops.find_roots._N
+constexpr int kMaxN = 128;       // voxtpu_torch.ops.find_roots._MAX_N
+constexpr int kThreads = 64;     // voxtpu_torch.ops.find_roots._THREADS
+constexpr int kCapThreads = 32;  // voxtpu_torch.ops.find_roots._CAP_THREADS
 constexpr int kLaguerreIters = 20;
 constexpr int kStatusZeroDegree = 1 << 1;  // voxtpu_torch.errors.POLY_ZERO_DEGREE
 constexpr int kStatusDivZero = 1 << 2;     // voxtpu_torch.errors.POLY_DIV_ZERO
@@ -107,8 +113,8 @@ __device__ __forceinline__ Cx<T> csqrt(Cx<T> a) {
 // A polynomial's coefficient pairs, index = power. Regs keeps them in
 // registers: every index is a constant once the loops over them are
 // unrolled. Column keeps them in the block's shared memory, one column a
-// thread, for the capacity instantiation, whose float64 pairs would not fit
-// in registers.
+// thread, for the capacity instantiation, whose pairs would not fit in
+// registers; its loops run to the runtime N.
 template <typename T, int kCap>
 struct Regs {
   static constexpr bool kShared = false;
@@ -119,8 +125,8 @@ struct Regs {
 template <typename T>
 struct Column {
   static constexpr bool kShared = true;
-  Cx<T>* p;  // pair j at p[j * kThreads]
-  __device__ __forceinline__ Cx<T>& operator[](int j) const { return p[j * kThreads]; }
+  Cx<T>* p;  // pair j at p[j * kCapThreads]
+  __device__ __forceinline__ Cx<T>& operator[](int j) const { return p[j * kCapThreads]; }
 };
 
 // p[N - 1], the top coefficient, of N <= kCap pairs.
@@ -150,15 +156,25 @@ __device__ __forceinline__ Cx<T> laguerre(const P& c, int N, T n) {
     // is what the shared layout is there to avoid.
     if constexpr (P::kShared) asm volatile("" ::: "memory");
     // p, p' and the p''/2 accumulator (polynomial.rs:39-45).
-    Cx<T> a = top<kCap>(c, N);
     Cx<T> b{T(0), T(0)};
     Cx<T> g{T(0), T(0)};
-#pragma unroll
-    for (int j = kCap - 2; j >= 0; --j) {
-      if (j < N - 1) {
+    Cx<T> a;
+    if constexpr (P::kShared) {
+      a = c[N - 1];
+      for (int j = N - 2; j >= 0; --j) {
         g = cadd(cmul(g, z), b);
         b = cadd(cmul(b, z), a);
         a = cadd(cmul(a, z), c[j]);
+      }
+    } else {
+      a = top<kCap>(c, N);
+#pragma unroll
+      for (int j = kCap - 2; j >= 0; --j) {
+        if (j < N - 1) {
+          g = cadd(cmul(g, z), b);
+          b = cadd(cmul(b, z), a);
+          a = cadd(cmul(a, z), c[j]);
+        }
       }
     }
     done = cnorm(a) <= T(1e-16);
@@ -181,22 +197,33 @@ __device__ __forceinline__ Cx<T> laguerre(const P& c, int N, T n) {
 template <int kCap, typename P, typename T>
 __device__ __forceinline__ void deflate(P& p, int N, Cx<T> z) {
   Cx<T> carry{T(0), T(0)};
-  Cx<T> above = top<kCap>(p, N);
-#pragma unroll
-  for (int i = kCap - 2; i >= 0; --i) {
-    if (i < N - 1) {
+  if constexpr (P::kShared) {
+    Cx<T> above = p[N - 1];
+    for (int i = N - 2; i >= 0; --i) {
       carry = cadd(above, cmul(z, carry));
       above = p[i];
       p[i] = carry;
     }
-  }
+    p[N - 1] = {T(0), T(0)};
+  } else {
+    Cx<T> above = top<kCap>(p, N);
 #pragma unroll
-  for (int j = 0; j < kCap; ++j) {
-    if (j == N - 1) p[j] = {T(0), T(0)};
+    for (int i = kCap - 2; i >= 0; --i) {
+      if (i < N - 1) {
+        carry = cadd(above, cmul(z, carry));
+        above = p[i];
+        p[i] = carry;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCap; ++j) {
+      if (j == N - 1) p[j] = {T(0), T(0)};
+    }
   }
 }
 
-// kExact: N == kCap, known when compiled; else N <= kCap at run time.
+// kExact: N == kCap, known when compiled, the pairs in registers; else
+// N <= kCap at run time, the pairs in the block's dynamic shared memory.
 template <typename T, int kCap, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     roots_kernel(const T* __restrict__ c_re, const T* __restrict__ c_im, T* __restrict__ r_re,
@@ -209,39 +236,43 @@ __global__ void __launch_bounds__(kThreads)
   const long base = row * N;
 
   using Poly = std::conditional_t<kExact, Regs<T, kCap>, Column<T>>;
-  __shared__ Cx<T> columns[kExact ? 1 : kCap * kThreads];
+  extern __shared__ __align__(16) unsigned char columns_raw[];
   Poly w;
-  if constexpr (!kExact) w.p = columns + threadIdx.x;
+  if constexpr (!kExact) w.p = reinterpret_cast<Cx<T>*>(columns_raw) + threadIdx.x;
 
   // degree: highest nonzero index (0 if none); low: lowest (N - 1 if none),
   // polynomial.rs:26-32.
   int deg = 0;
   int low = N - 1;
-#pragma unroll
-  for (int j = kCap - 1; j >= 0; --j) {
-    w[j] = {T(0), T(0)};
-    if (j < N) {
-      w[j] = {c_re[base + j], c_im[base + j]};
-      if (w[j].re != T(0) || w[j].im != T(0)) {
-        if (deg == 0) deg = j;
-        low = j;
-      }
-      r_re[base + j] = T(0);
-      r_im[base + j] = T(0);
+  // Unrolled with constant indices for the registers; a loop for the capacity.
+  constexpr int kUnroll = kExact ? kCap : 1;
+#pragma unroll(kUnroll)
+  for (int j = N - 1; j >= 0; --j) {
+    w[j] = {c_re[base + j], c_im[base + j]};
+    if (w[j].re != T(0) || w[j].im != T(0)) {
+      if (deg == 0) deg = j;
+      low = j;
     }
+    r_re[base + j] = T(0);
+    r_im[base + j] = T(0);
   }
   int status = deg < 1 ? kStatusZeroDegree : 0;
   const int m0 = deg - low;
 
   // Shift the x^low factor out: w[j] = c[j + low], 0 past the top.
+  if constexpr (kExact) {
 #pragma unroll
-  for (int s = 1; s < kCap; s <<= 1) {
-    if (low & s) {
+    for (int s = 1; s < kCap; s <<= 1) {
+      if (low & s) {
 #pragma unroll
-      for (int j = 0; j < kCap; ++j) {
-        w[j] = j + s < N ? w[j + s < kCap ? j + s : kCap - 1] : Cx<T>{T(0), T(0)};
+        for (int j = 0; j < kCap; ++j) {
+          w[j] = j + s < N ? w[j + s < kCap ? j + s : kCap - 1] : Cx<T>{T(0), T(0)};
+        }
       }
     }
+  } else {
+    // Ascending j reads w[j + low] before it is overwritten.
+    for (int j = 0; j < N; ++j) w[j] = j + low < N ? w[j + low] : Cx<T>{T(0), T(0)};
   }
 
   const T n_lag = static_cast<T>(m0);
@@ -289,15 +320,22 @@ int launch(const void* c_re, const void* c_im, void* r_re, void* r_im, void* cou
            int B, int N, void* stream) {
   if (N < 1 || N > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
-    const int blocks = vt::blocks_for(B, kThreads);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto *re = static_cast<const T*>(c_re), *im = static_cast<const T*>(c_im);
     auto *rre = static_cast<T*>(r_re), *rim = static_cast<T*>(r_im);
     auto *cnt = static_cast<int*>(count), *st = static_cast<int*>(status);
     if (N == kN) {
-      roots_kernel<T, kN, true><<<blocks, kThreads, 0, s>>>(re, im, rre, rim, cnt, st, B, N);
+      roots_kernel<T, kN, true><<<vt::blocks_for(B, kThreads), kThreads, 0, s>>>(re, im, rre, rim, cnt, st, B, N);
     } else {
-      roots_kernel<T, kMaxN, false><<<blocks, kThreads, 0, s>>>(re, im, rre, rim, cnt, st, B, N);
+      // N columns of kCapThreads pairs: at most 64 KB (float64, N = 128).
+      const int smem = N * kCapThreads * static_cast<int>(sizeof(Cx<T>));
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(roots_kernel<T, kMaxN, false>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      roots_kernel<T, kMaxN, false><<<vt::blocks_for(B, kCapThreads), kCapThreads, smem, s>>>(re, im, rre, rim, cnt,
+                                                                                             st, B, N);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -3,8 +3,9 @@ voxtpu/ops/burg_pallas.py's `burg_pallas`).
 
 `burg_plain` is the PyTorch version of `voxtpu.lpc.burg` (the reference's
 lpc_praat_mut, spectrum.rs:101-146), batched over frames with the order
-recursion unrolled. `burg` runs it for CPU tensors and launches the kernel,
-one thread block per frame, for CUDA tensors.
+recursion unrolled. `burg` runs it for CPU tensors, at any order, and launches the kernel,
+one thread block per frame, for CUDA tensors, at orders up to 127 (as
+voxtpu's Pallas kernel, voxtpu/ops/burg_pallas.py:87-88).
 
 Both accumulate each order's two sums (num, denum) and its reflection
 coefficient in float64, also for float32 frames; b1, b2 and the coefficients
@@ -36,7 +37,7 @@ from voxtpu_torch.ops import kernels
 __all__ = ["BurgConfig", "burg_plain", "burg", "launch_config", "layout", "smem_bytes"]
 
 # Mirrors of csrc/burg.cu's constants.
-_MAX_ORDER = 64  # kMaxOrder
+_MAX_ORDER = 127  # kMaxOrder
 _WIDTH = {torch.float32: 35, torch.float64: 23}  # kWidthF32, kWidthF64
 _SHARED_WIDTH = 63  # kSharedWidth
 _MAX_THREADS = 512  # kMaxThreads
@@ -137,8 +138,13 @@ def burg(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
     if kernels.on_cpu(x):
         return burg_plain(x, n_coeffs)
     p = int(n_coeffs)
-    if x.dim() != 2 or x.shape[-1] < 2 or not 1 <= p <= _MAX_ORDER:
-        raise ValueError(f"burg: x (B, N >= 2) and 1 <= order <= {_MAX_ORDER}; got {x.shape}, {p}")
+    if x.dim() != 2 or x.shape[-1] < 2 or p < 1:
+        raise ValueError(f"burg: x (B, N >= 2) and an order >= 1; got {x.shape}, {p}")
+    if p > _MAX_ORDER:
+        raise ValueError(
+            f"burg: the card takes LPC orders up to {_MAX_ORDER}, as voxtpu's Pallas kernel "
+            f"(voxtpu/ops/burg_pallas.py:87-88); got {p}"
+        )
     B, N = x.shape
     config = launch_config(N, x.dtype)
     x = x.contiguous()

@@ -5,11 +5,13 @@ replaces voxtpu/ops/roots_pallas.py's `find_roots_pallas`).
 (polynomial.rs:92-152): leading zeros shift out as zero roots, then
 max(N-3, 0) rounds of 20-iteration Laguerre plus synthetic deflation, then
 the closed-form quadratic or linear tail. `find_roots` runs it for CPU
-tensors and launches the kernel, one thread per polynomial with the
-polynomial in registers, for CUDA tensors; it takes 1 <= N <= _MAX_N on
-either device. The kernel is compiled for N = _N (the order-13 polynomials
-of every configuration the repo runs) and once for any other N up to
-_MAX_N, in blocks of _THREADS.
+tensors and launches the kernel, one thread per polynomial, for CUDA
+tensors. The plain version takes any N >= 1; the kernel takes 1 <= N <=
+_MAX_N = 128, LPC orders up to 127, the reference's own TPU limit
+(voxtpu/ops/burg_pallas.py:87-88). The kernel is compiled for N = _N (the
+order-13 polynomials of every configuration the repo runs), its polynomial
+in registers, in blocks of _THREADS, and once for any other N up to
+_MAX_N, its pairs in shared memory, in blocks of _CAP_THREADS.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ __all__ = ["find_roots_plain", "find_roots"]
 
 # Mirrors of csrc/roots.cu's constants.
 _N = 14  # kN
-_MAX_N = 32  # kMaxN
+_MAX_N = 128  # kMaxN
 _THREADS = 64  # kThreads
+_CAP_THREADS = 32  # kCapThreads
 
 
 def find_roots_plain(c_re: torch.Tensor, c_im: torch.Tensor):
@@ -60,6 +63,8 @@ def find_roots_plain(c_re: torch.Tensor, c_im: torch.Tensor):
     n_lag = m0.to(dt)
     for it in range(max(N - 3, 0)):
         active = (it < m0 - 2) & (status == 0)
+        if not bool(active.any()):
+            break  # a row that leaves the rounds never comes back: the rest would change nothing
         z = laguerre(work, start, n_lag=n_lag)
         div_zero = active & (z.re == 0) & (z.im == 0)
         status = torch.where(div_zero, status | errors.POLY_DIV_ZERO, status)
@@ -100,14 +105,20 @@ def find_roots_plain(c_re: torch.Tensor, c_im: torch.Tensor):
 
 
 def find_roots(c_re: torch.Tensor, c_im: torch.Tensor):
-    """`find_roots_plain` for CPU tensors; on the card, csrc/roots.cu."""
-    if c_re.dim() != 2 or c_re.shape != c_im.shape or not 1 <= c_re.shape[1] <= _MAX_N:
-        raise ValueError(f"find_roots: c_re, c_im (B, 1 <= N <= {_MAX_N}); got {c_re.shape}, {c_im.shape}")
+    """`find_roots_plain` for CPU tensors (any N >= 1); on the card,
+    csrc/roots.cu (1 <= N <= _MAX_N)."""
+    if c_re.dim() != 2 or c_re.shape != c_im.shape or c_re.shape[1] < 1:
+        raise ValueError(f"find_roots: c_re, c_im (B, N >= 1) of one shape; got {c_re.shape}, {c_im.shape}")
     if c_im.dtype != c_re.dtype:
         raise TypeError("find_roots: c_re and c_im must share a dtype")
     if kernels.on_cpu(c_re, c_im):
         return find_roots_plain(c_re, c_im)
     B, N = c_re.shape
+    if N > _MAX_N:
+        raise ValueError(
+            f"find_roots: the card takes N <= {_MAX_N} coefficient pairs (LPC orders up to {_MAX_N - 1}, as "
+            f"voxtpu's Pallas kernels, voxtpu/ops/burg_pallas.py:87-88); got N = {N}"
+        )
     c_re, c_im = c_re.contiguous(), c_im.contiguous()
     r_re = torch.empty_like(c_re)
     r_im = torch.empty_like(c_re)

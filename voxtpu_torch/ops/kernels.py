@@ -51,7 +51,7 @@ _SIGNATURES = {
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppppiiii",
     "vt_ct_fused": "ppppii",
-    "vt_viterbi": "pppppiiidd",
+    "vt_viterbi": "ppppppppiiiiidd",
     "vt_pitch_pre": "pppppiiiddd",
     "vt_polish": "ppppppiiid",
 }

@@ -6,10 +6,13 @@ fuses into one program: there is no Pallas kernel).
 two_sum, Dekker split/two_prod) evaluate the ORIGINAL polynomial's residual
 in double-f32, so a couple of Newton steps recover the accuracy that
 deflation lost. Eager PyTorch runs it as about 9,300 elementwise launches a
-call. `polish_roots` runs it for CPU tensors and launches the kernel, one
-thread a root slot, for CUDA tensors. The outputs are bit-identical: the
-kernel repeats every operation in the same order and precision (see the
-note in csrc/polish.cu).
+call. `polish_roots` runs it for CPU tensors, at any N, and launches the
+kernel, one thread a root slot, for CUDA tensors, at N <= _MAX_N = 128 (LPC
+orders up to 127, as the roots kernel). The outputs are bit-identical: the
+kernel repeats every operation whose result is used, in the same order and
+precision, and evaluates each point once where this version evaluates it
+twice (see the note in csrc/polish.cu). N = _N runs with the coefficients
+in registers.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import torch
 from voxtpu_torch.ops import kernels
 
 __all__ = ["polish_roots_plain", "polish_roots"]
+
+# Mirrors of csrc/polish.cu's constants.
+_N = 14  # kN
+_MAX_N = 128  # kMaxN
 
 
 def _two_sum(a, b):
@@ -136,6 +143,8 @@ def polish_roots(
     if cpu:
         return polish_roots_plain(c_re, c_im, z_re, z_im, iters, max_step)
     F, N = c_re.shape
+    if N > _MAX_N:
+        raise ValueError(f"polish_roots: the card takes N <= {_MAX_N} (LPC orders up to {_MAX_N - 1}); got N = {N}")
     c_re, c_im, z_re, z_im = (t.contiguous() for t in ts)
     out_re, out_im = torch.empty_like(z_re), torch.empty_like(z_im)
     kernels.launch("vt_polish", c_re.dtype, c_re, c_im, z_re, z_im, out_re, out_im, F, N, iters,

@@ -40,17 +40,19 @@ def off_low(c: C) -> torch.Tensor:
 
 
 def _horner_pdd(c: C, z: C) -> tuple[C, C, C]:
-    """p, p' and the p''/2 accumulator by one Horner pass (polynomial.rs:39-45)."""
+    """p, p' and the p''/2 accumulator by one Horner pass (polynomial.rs:39-45):
+    g = g z + b, b = b z + a, a = a z + c[j], each from the values before
+    the step, stacked as (g, b, a) so that one complex multiply-add serves
+    all three (the same operations on each, a third of the launches)."""
     n = c.re.shape[-1]
     zero = torch.zeros_like(c.re[..., 0])
-    a = C(c.re[..., n - 1], c.im[..., n - 1])
-    b = C(zero, zero)
-    g = C(zero, zero)
+    x_re = torch.stack([zero, zero, c.re[..., n - 1]])
+    x_im = torch.stack([zero, zero, c.im[..., n - 1]])
     for j in range(n - 2, -1, -1):
-        g = cadd(cmul(g, z), b)
-        b = cadd(cmul(b, z), a)
-        a = cadd(cmul(a, z), C(c.re[..., j], c.im[..., j]))
-    return a, b, g
+        y_re = torch.cat([x_re[1:], c.re[..., j][None]])
+        y_im = torch.cat([x_im[1:], c.im[..., j][None]])
+        x_re, x_im = x_re * z.re - x_im * z.im + y_re, x_re * z.im + x_im * z.re + y_im
+    return C(x_re[2], x_im[2]), C(x_re[1], x_im[1]), C(x_re[0], x_im[0])
 
 
 def laguerre(c: C, start: C, n_lag: torch.Tensor | int | None = None, iters: int = 20) -> C:
