@@ -106,7 +106,25 @@ checkout. Phases, each an uncaught exception when it fails:
    records in one chunk, its chain's clocks a step and floor (the chain's probe, through
    `viterbi._launch`), beside its bound and the time to write and read
    back its records (`records_ms`); P beside its bound at 1 + iters passes and at
-   the plain version's 1 + 2 iters.
+   the plain version's 1 + 2 iters;
+11. serve (`check_serve`): `voxtpu_torch.serve.VoxServer` on the card at the
+   CLI defaults (window 3 ms, max_batch 8, bucket 1024), `warmup()` timed;
+   64 recordings of 1-8 tiles (gains from `default_rng(0)`) posted as float
+   WAVs by 8 client threads at once, half JSON, half npz: each response's
+   frames and status equal float32 `analyze` of its recording on the card,
+   its features within BUDGETS, the values not bit-equal counted, a batch
+   of 2 or more in /stats; one dispatch under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync); a warm
+   request's latency (median of 9) and its JSON encoding's share; one
+   viterbi=1 request bit for bit with `pitch_path` on the card over the
+   returned candidates (kernel F launched); one 16 kHz request at 2048/512
+   within BUDGETS of `analyze` (kernel E launched); two /stream sessions
+   over the 126 tiles in 1 MiB f32le appends and 512-frame chunks, the
+   first bit for bit with `analyze_long(chunk_frames=512)`, the second's
+   viterbi=1 close bit for bit with its path search; `python3 -m
+   voxtpu_torch serve` as a new process answering one request as the
+   in-process server does and exiting 0 on SIGINT. Each run's launches are
+   counted; every kernel must have run in the phase.
 
 Each phase prints the seconds it took.
 
@@ -141,6 +159,8 @@ EXPECTED_FRAMES = 35689  # CLI path, 2205/441
 BENCH_FRAMES = 15369  # bench path, 4096/1024
 CORPUS_FILES = 16  # `corpus --batch-files` default (voxtpu/cli.py:892)
 CORPUS_TILES = 8
+SERVE_REQUESTS = 64  # phase 11's /analyze burst, from SERVE_CLIENTS threads at once
+SERVE_CLIENTS = 8
 KNIFE = 1e-3  # |lag - round(lag)| under which the integer-snap branch decides Brent's path
 
 # Fast-mode budgets, float32 against float64 (tests/test_fast_mode.py:72-79).
@@ -1829,14 +1849,17 @@ def eager_polish():
         polish.polish_roots = kernel
 
 
-def write_float_wav(path, x, sample_rate: float) -> None:
+def float_wav_bytes(x, sample_rate: float) -> bytes:
     """A mono 32-bit IEEE-float WAV (format 3), which keeps values above 1."""
     data = np.asarray(x, dtype="<f4").tobytes()
     fmt = struct.pack("<HHIIHH", 3, 1, int(sample_rate), int(sample_rate) * 4, 4, 32)
+    return (b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE" + b"fmt "
+            + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def write_float_wav(path, x, sample_rate: float) -> None:
     with open(path, "wb") as f:
-        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
-        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
-        f.write(b"data" + struct.pack("<I", len(data)) + data)
+        f.write(float_wav_bytes(x, sample_rate))
 
 
 def npz_tensors(path) -> dict:
@@ -1844,6 +1867,332 @@ def npz_tensors(path) -> dict:
 
     with np.load(path) as z:
         return {k: torch.as_tensor(z[k]) for k in z.files}
+
+
+def http_post(port: int, path: str, body: bytes = b"", timeout: float = 300.0) -> tuple[int, bytes, float]:
+    """POST to the local server: (status, body, seconds on the host clock)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+    finally:
+        conn.close()
+    return r.status, data, time.perf_counter() - t0
+
+
+def http_get(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60.0)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def response_features(data: bytes, fmt: str) -> dict:
+    """A /analyze or /stream response's features as NumPy arrays: npz as
+    written; JSON lists back to float32 (exact: each value was a float32),
+    null (a non-finite value: hnr_db's -inf) back to -inf."""
+    import io
+
+    if fmt == "npz":
+        with np.load(io.BytesIO(data)) as z:
+            return {k: z[k] for k in z.files}
+    feats = json.loads(data)["features"]
+    out = {}
+    for k, v in feats.items():
+        a = np.asarray(v, dtype=object)
+        out[k] = np.where(a == None, -np.inf, a).astype(np.float64).astype(np.float32)  # noqa: E711
+    return out
+
+
+def bits_apart(got: dict, want: dict) -> dict:
+    """{key: elements whose values differ in bits} (NaN equals NaN)."""
+    out = {}
+    for k, w in want.items():
+        g = np.asarray(got[k]).astype(w.dtype)
+        same = (g == w) | (np.isnan(g) & np.isnan(w)) if w.dtype.kind == "f" else g == w
+        out[k] = int((~same).sum())
+    return out
+
+
+def over_budgets(got: dict, want: dict) -> dict:
+    """{key: values over BUDGETS}: f0 on the frames voiced in `want`."""
+    voiced = want["f0"] > 0
+    out = {}
+    for key, budget in BUDGETS.items():
+        err = np.abs(got[key].astype(np.float64) - want[key].astype(np.float64))
+        if key == "f0":
+            err = np.where(voiced, err, 0.0)
+        out[key] = int((~(err <= budget)).sum())
+    return out
+
+
+def serve_recordings(one: np.ndarray) -> tuple[list, list]:
+    """SERVE_REQUESTS recordings of 1-8 tiles of `one` (2.8-22.7 s), each
+    times a gain in [0.5, 2) (`default_rng(0)`), float32; and their tiles."""
+    rng = np.random.default_rng(0)
+    tiles = rng.integers(1, 9, SERVE_REQUESTS)
+    gains = rng.uniform(0.5, 2.0, SERVE_REQUESTS)
+    return [(g * np.tile(one, t)).astype(np.float32) for t, g in zip(tiles, gains)], tiles.tolist()
+
+
+def check_serve(one: np.ndarray, sr: float, card: str, checks: Checks, run_counted, dev) -> dict:
+    """Phase 11: `voxtpu_torch.serve` on device `dev` (see the module
+    docstring). Returns the launches of each counted run and the phase's
+    numbers."""
+    import select
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from voxtpu_torch import cli
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.pipeline import CLI_DEFAULT_44K, _intensity, _local_peak, analyze, analyze_long, f0_outputs
+    from voxtpu_torch.serve import ServeConfig, VoxServer, _jsonable, _Pending
+    from voxtpu_torch.viterbi import PathConfig, pitch_path
+
+    cfg = CLI_DEFAULT_44K
+    srv = VoxServer(ServeConfig(port=0, window_ms=3, max_batch=8, bucket=1024, device=str(dev)))
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    _host, port = srv.start()
+    print(f"server on the card: {srv.health()}; warmup() {warm_s:.2f} s (shapes (1, 64) and (8, 1024)) [{card}]")
+    launches, numbers = {}, {"warmup_s": warm_s}
+    try:
+        # /analyze: 64 recordings from 8 client threads at once, half JSON, half npz.
+        recs, tiles = serve_recordings(one)
+        bodies = [float_wav_bytes(r, sr) for r in recs]
+        fmts = ["json" if i % 2 == 0 else "npz" for i in range(SERVE_REQUESTS)]
+
+        def post(i):
+            return http_post(port, f"/analyze?format={fmts[i]}", bodies[i])
+
+        def burst():
+            t = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                res = list(pool.map(post, range(SERVE_REQUESTS)))
+            return res, time.perf_counter() - t
+
+        (results, wall), launches["burst"] = run_counted("serve, 64 /analyze requests", burst)
+        stats = http_get(port, "/stats")
+        audio = sum(len(r) for r in recs) / sr
+        lat = sorted(s for _st, _d, s in results)
+        numbers["burst"] = {
+            "wall_s": wall, "requests_per_s": SERVE_REQUESTS / wall, "audio_s_per_s": audio / wall,
+            "audio_s": audio, "p50_ms": 1e3 * lat[len(lat) // 2], "p95_ms": 1e3 * lat[int(0.95 * len(lat))],
+            "batch_size_hist": stats["batch_size_hist"], "batches": stats["batches"],
+            "shapes": stats["compiled_shapes"], "server_latency_ms": stats["latency_ms"],
+            "device_time_s": stats["device_time_s"],
+        }
+        b = numbers["burst"]
+        print(f"serve burst: {SERVE_REQUESTS} requests ({audio:.1f} s of audio, {SERVE_CLIENTS} clients) in "
+              f"{wall:.3f} s = {b['requests_per_s']:.1f} requests/s, {b['audio_s_per_s']:.1f} audio-s/s; latency "
+              f"p50 {b['p50_ms']:.1f} ms, p95 {b['p95_ms']:.1f} ms (client); batches {stats['batches']}, batch sizes "
+              f"{stats['batch_size_hist']}, shapes {stats['compiled_shapes']}; device_time_s {stats['device_time_s']} "
+              f"(CUDA events, summed over batches) [{card}]")
+        checks.true("serve: every /analyze answered 200", all(st == 200 for st, _d, _s in results),
+                    f"{[st for st, _d, _s in results if st != 200][:4]}")
+        checks.true("serve: a batch of 2 or more coalesced", any(int(k) >= 2 for k in stats["batch_size_hist"]),
+                    f"{stats['batch_size_hist']}")
+        for name in ("pitch_pre", "refine", "burg", "find_roots", "formant_scan", "polish"):
+            checks.true(f"serve burst: {name} launched", launches["burst"][name] >= 1, f"({launches['burst'][name]})")
+        checks.true("serve burst: ct_fused and viterbi not launched",
+                    launches["burst"]["ct_fused"] == 0 and launches["burst"]["viterbi"] == 0)
+
+        # Each response against float32 `analyze` of its recording on the card.
+        apart, over, values, served, worst = {}, {}, 0, {}, {}
+        for i, (rec, (st, data, _s)) in enumerate(zip(recs, results)):
+            if st != 200:
+                continue
+            got = response_features(data, fmts[i])
+            want = {k: v.cpu().numpy() for k, v in analyze(torch.as_tensor(rec, device=dev), cfg).items()}
+            served[i] = got
+            checks.true(f"serve request {i}: keys and frames", got.keys() == want.keys()
+                        and all(got[k].shape == want[k].shape for k in want), f"({got['f0'].shape}, {want['f0'].shape})")
+            if got["f0"].shape != want["f0"].shape:
+                continue
+            checks.true(f"serve request {i}: status 0 on every frame, equal to analyze",
+                        not got["status"].any() and not want["status"].any())
+            for k, n in bits_apart(got, want).items():
+                apart[k] = apart.get(k, 0) + n
+                if n and want[k].dtype.kind == "f":
+                    d = np.abs(got[k].astype(np.float64) - want[k])
+                    worst[k] = max(worst.get(k, 0.0), float(d[np.isfinite(d)].max(initial=0.0)))
+            for k, n in over_budgets(got, want).items():
+                over[k] = over.get(k, 0) + n
+            values += sum(v.size for v in want.values())
+        numbers["bits_apart"], numbers["over_budgets"], numbers["max_abs_err"] = apart, over, worst
+        print(f"serve responses vs float32 analyze on the card: {sum(apart.values())} of {values} values not "
+              f"bit-equal, by key {apart}, largest difference by key {worst}; over BUDGETS {over} [{card}]")
+        checks.true("serve responses within BUDGETS of analyze", not any(over.values()), f"{over}")
+
+        # One dispatch under the sync check: stack, copy, analyze, copy back, no host wait.
+        frames = [(len(r) - cfg.frame_len) // cfg.hop + 1 for r in recs]
+        Fp = cli._bucket_target(frames[0], srv.cfg.bucket)
+        key = (srv._config(sr, dict(srv.cfg.defaults)), Fp, cfg.frame_len)
+        items = [_Pending(np.ascontiguousarray(r[: (F - 1) * cfg.hop + cfg.frame_len]), F)
+                 for r, F in zip(recs, frames) if cli._bucket_target(F, srv.cfg.bucket) == Fp][:2]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending = srv.batcher._dispatch(key, items)
+            host_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        errors = [it.error for it in items if it.error]
+        checks.true("serve: one dispatch ran with no host sync (set_sync_debug_mode('error'))",
+                    pending is not None and not errors, errors[0][-1500:] if errors else "")
+        if pending is not None:
+            srv.batcher._drain(pending)
+            dev_s = pending[5].seconds()
+            numbers["dispatch"] = {"host_ms": 1e3 * host_s, "device_ms": 1e3 * dev_s, "recordings": len(items)}
+            print(f"serve dispatch of {len(items)} recording(s) at (B, Fp) = ({len(items)}, {Fp}): host "
+                  f"{1e3 * host_s:.2f} ms to stack and launch, device {1e3 * dev_s:.2f} ms [{card}]")
+
+        # Warm single-request latency, and the share of it spent encoding JSON.
+        i1 = tiles.index(4) if 4 in tiles else 0
+        lat1 = sorted(http_post(port, "/analyze", bodies[i1])[2] for _ in range(9))
+        feats = served.get(i1) or response_features(http_post(port, "/analyze?format=npz", bodies[i1])[1], "npz")
+        enc = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            json.dumps({"features": {k: _jsonable(v) for k, v in feats.items()}}).encode()
+            enc.append(time.perf_counter() - t0)
+        single_ms, json_ms = 1e3 * lat1[4], 1e3 * statistics.median(enc)
+        numbers["single"] = {"latency_ms": single_ms, "json_ms": json_ms, "json_share": json_ms / single_ms,
+                             "audio_s": len(recs[i1]) / sr, "frames": int(feats["f0"].shape[0])}
+        print(f"serve, one warm request ({len(recs[i1]) / sr:.1f} s, {feats['f0'].shape[0]} frames, JSON): median of 9 "
+              f"{single_ms:.2f} ms; JSON encoding {json_ms:.2f} ms = {100 * json_ms / single_ms:.1f}% of it [{card}]")
+
+        # viterbi=1: the path search on the card over the trimmed candidates.
+        iv = tiles.index(3) if 3 in tiles else 0
+        (st, data, _s), launches["viterbi"] = run_counted(
+            "serve, one viterbi=1 request", lambda: http_post(port, "/analyze?viterbi=1&format=npz", bodies[iv]))
+        got = response_features(data, "npz")
+        x = torch.as_tensor(recs[iv], device=dev)
+        peak = _local_peak(frame_signal(x, cfg.frame_len, cfg.hop))
+        cand = [torch.as_tensor(got[k], device=dev) for k in
+                ("pitch_candidates_freq", "pitch_candidates_strength", "pitch_candidates_valid")]
+        want = {k: v.cpu().numpy() for k, v in f0_outputs(*pitch_path(
+            *cand, PathConfig(ceiling=cfg.pitch.fmax), local_intensity=_intensity(peak))).items()}
+        vapart = bits_apart(got, want)
+        checks.true("serve viterbi=1: f0, f0_strength, hnr_db bit for bit with pitch_path on the card",
+                    st == 200 and not any(vapart.values()), f"({st}, {vapart})")
+        checks.true("serve viterbi=1: kernel F launched", launches["viterbi"]["viterbi"] >= 1,
+                    f"({launches['viterbi']['viterbi']})")
+
+        # A 16 kHz request at 2048/512 (frame_ms=128, hop_ms=32): kernel E.
+        x16 = np.interp(np.arange(0, len(one) * 4 * 16000 / sr) * sr / 16000, np.arange(len(one) * 4),
+                        np.tile(one, 4)).astype(np.float32)
+        (st, data, _s), launches["flagship_16k"] = run_counted(
+            "serve, one 16 kHz request at 2048/512",
+            lambda: http_post(port, "/analyze?frame_ms=128&hop_ms=32&format=npz", float_wav_bytes(x16, 16000.0)))
+        got = response_features(data, "npz")
+        c16 = cli.build_analysis_config(16000.0, frame_ms=128.0, hop_ms=32.0)
+        want = {k: v.cpu().numpy() for k, v in analyze(torch.as_tensor(x16, device=dev), c16).items()}
+        ok16 = st == 200 and got["f0"].shape == want["f0"].shape
+        o16 = over_budgets(got, want) if ok16 else {}
+        checks.true(f"serve 16 kHz {c16.frame_len}/{c16.hop}: frames equal analyze and within BUDGETS",
+                    ok16 and not any(o16.values()), f"({st}, {o16}, {bits_apart(got, want) if ok16 else ''})")
+        checks.true("serve 16 kHz 2048/512: kernel E launched", launches["flagship_16k"]["ct_fused"] >= 1,
+                    f"({launches['flagship_16k']['ct_fused']})")
+
+        # Two /stream sessions over the whole 356.9 s signal: f32le, 1 MiB appends, 512-frame chunks.
+        signal32 = np.tile(one, TILES).astype(np.float32)
+        pcm = signal32.tobytes()
+
+        def stream(open_q):
+            st, d, _s = http_post(port, f"/stream/open?{open_q}")
+            if st != 200:
+                raise RuntimeError(f"/stream/open: {st} {d[:300]!r}")
+            sid = json.loads(d)["session"]
+            parts, t = [], time.perf_counter()
+            for i in range(0, len(pcm), 1 << 20):
+                st, d, _s = http_post(port, f"/stream/append?session={sid}&format=npz", pcm[i : i + (1 << 20)])
+                if st != 200:
+                    raise RuntimeError(f"/stream/append: {st} {d[:300]!r}")
+                parts.append(response_features(d, "npz"))
+            st, d, _s = http_post(port, f"/stream/close?session={sid}&format=npz")
+            if st != 200:
+                raise RuntimeError(f"/stream/close: {st} {d[:300]!r}")
+            tail = response_features(d, "npz")
+            wall = time.perf_counter() - t
+            vit = {k[len("viterbi_"):]: tail.pop(k) for k in list(tail) if k.startswith("viterbi_")}
+            parts = [p for p in parts + [tail] if p]  # an append that completes no chunk has no features
+            feats = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+            return feats, vit, wall
+
+        xs = torch.as_tensor(signal32, device=dev)
+        (feats, _vit, wall1), launches["stream"] = run_counted(
+            "serve, /stream session", lambda: stream("rate=44100&chunk_frames=512"))
+        want = {k: v.cpu().numpy() for k, v in analyze_long(xs, cfg, chunk_frames=512).items()}
+        sapart = bits_apart(feats, want) if feats.keys() == want.keys() and feats["f0"].shape == want["f0"].shape \
+            else {"keys or frames": -1}
+        checks.true(f"serve /stream: {want['f0'].shape[0]} frames bit for bit with analyze_long(chunk_frames=512)",
+                    not any(sapart.values()), f"{sapart}")
+        (_feats2, vit, wall2), launches["stream_viterbi"] = run_counted(
+            "serve, /stream session with viterbi=1", lambda: stream("rate=44100&chunk_frames=512&viterbi=1"))
+        vwant = analyze_long(xs, with_viterbi(cfg), chunk_frames=512)
+        vwant = {k: vwant[k].cpu().numpy() for k in ("f0", "f0_strength", "hnr_db")}
+        svapart = bits_apart(vit, vwant) if vit.keys() >= vwant.keys() else {"keys": -1}
+        checks.true("serve /stream viterbi=1 close: bit for bit with pitch_path over analyze_long's candidates",
+                    not any(svapart.values()), f"{svapart}")
+        checks.true("serve /stream viterbi=1 close: kernel F launched", launches["stream_viterbi"]["viterbi"] >= 1)
+        secs = len(signal32) / sr
+        numbers["stream"] = {"audio_s": secs, "wall_s": [wall1, wall2], "audio_s_per_s": [secs / wall1, secs / wall2]}
+        print(f"serve /stream: {secs:.1f} s of audio in {wall1:.3f} s = {secs / wall1:.1f} audio-s/s; with viterbi=1 "
+              f"{wall2:.3f} s = {secs / wall2:.1f} audio-s/s (1 MiB appends, npz, 512-frame chunks) [{card}]")
+        stats = http_get(port, "/stats")
+        numbers["device_time_s"] = stats["device_time_s"]
+        print(f"serve /stats after the phase: device_time_s {stats['device_time_s']}, requests {stats['requests']}, "
+              f"batches {stats['batches']}, stream_chunks {stats['stream_chunks']}, latency {stats['latency_ms']} "
+              f"[{card}]")
+
+        # The command a user runs: a new process, one request, SIGINT.
+        proc = subprocess.Popen([sys.executable, "-m", "voxtpu_torch", "serve", "--port", "0", "--device", str(dev)],
+                                cwd=ROOT,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            ready = select.select([proc.stdout], [], [], 300)[0]
+            line = proc.stdout.readline() if ready else ""
+            up_s = time.perf_counter() - t0
+            if not line.startswith("voxtpu serving on http://"):
+                raise RuntimeError(f"python -m voxtpu_torch serve printed {line!r}")
+            cport = int(line.split()[3].rsplit(":", 1)[1])
+            st, data, _s = http_post(cport, "/analyze", bodies[i1])
+            ref = http_post(port, "/analyze", bodies[i1])[1]
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        same = st == 200 and json.loads(data) == json.loads(ref)
+        apart = "" if same or st != 200 else f" ({bits_apart(response_features(data, 'json'), response_features(ref, 'json'))})"
+        print(f"python -m voxtpu_torch serve: serving after {up_s:.1f} s (process start, CUDA init, warm-up); one "
+              f"request {st}, {'equal to' if same else 'NOT equal to'} the in-process server's answer{apart}; exit "
+              f"{rc} on SIGINT; stderr: {proc.stderr.read().strip()[-400:]}")
+        checks.true("python -m voxtpu_torch serve answers as the in-process server and exits 0 on SIGINT",
+                    same and rc == 0, f"({st}, exit {rc})")
+        numbers["cli_up_s"] = up_s
+    finally:
+        srv.shutdown()
+    total = {name: sum(c[name] for c in launches.values()) for name in next(iter(launches.values()))}
+    print(f"serve phase launches: {launches}; in all {total}")
+    for name in KERNELS:
+        checks.true(f"serve phase: {name} launched", total[name] >= 1, f"({total[name]})")
+    return {"launches": launches, "total": total, "numbers": numbers}
 
 
 def main() -> None:
@@ -2462,6 +2811,12 @@ def main() -> None:
           f"live slot), {p_row['bound_plain_passes_ms']:.4f} at the plain version's 1 + 2 iters [{card}]")
 
     phase_took("phase 10, times")
+
+    # --- 11. serve: the HTTP daemon on the card, its launches counted per run
+    serve = check_serve(one, sr, card, checks, run_counted, dev)
+    for row in rows:
+        row["launches_by_path"]["serve"] = serve["total"][row["name"]]
+    phase_took("phase 11, serve")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
 
@@ -2472,7 +2827,8 @@ def main() -> None:
                       "device": {k: device(v) for k, v in profs.items()},
                       "before_p": {"e2e_ms": e2e_eager, "device": {k: device(v) for k, v in profs_eager.items()}},
                       "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF},
-                      "corpus_command_s": {"first": corpus_wall, "second": corpus_warm}, "card": card}))
+                      "corpus_command_s": {"first": corpus_wall, "second": corpus_warm},
+                      "serve": {**serve["numbers"], "launches": serve["launches"]}, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

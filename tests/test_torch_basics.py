@@ -7,9 +7,13 @@ never imports JAX, that a missing nvcc raises instead of falling back to
 the plain versions, and that CPU runs launch no kernel.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
+import threading
+import time
+import types
 
 import numpy as np
 import pytest
@@ -90,6 +94,48 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
         assert burg.burg.launches == 0
     finally:
         kernels.library.cache_clear()
+
+
+def test_kernel_library_builds_once_across_threads(monkeypatch, tmp_path):
+    """Eight threads making a process's first launch at once (a server's
+    dispatcher and its stream handlers): one build, one load, one handle."""
+    builds, loads = [], []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)  # long enough for every thread to arrive
+        return tmp_path / "built.so"
+
+    class FakeLibrary:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, name):  # each exported launcher, argtypes settable
+            fn = self.__dict__[name] = types.SimpleNamespace()
+            return fn
+
+    monkeypatch.setattr(kernels, "build", slow_build)
+    monkeypatch.setattr(kernels, "library_path", lambda: tmp_path / "absent.so")
+    monkeypatch.setattr(ctypes, "CDLL", FakeLibrary)
+    kernels.library.cache_clear()
+    start = threading.Barrier(8)
+    handles = []
+
+    def first_launch():
+        start.wait()
+        handles.append(kernels.library())
+
+    threads = [threading.Thread(target=first_launch) for _ in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+    finally:
+        kernels.library.cache_clear()
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(handles) == 8 and all(h is handles[0] for h in handles)
 
 
 def test_wrappers_reject_non_cuda_devices():

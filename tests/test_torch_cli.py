@@ -373,10 +373,19 @@ def test_cli_rejects_feature_typo(capsys):
     assert "formnts" in err and "unknown feature" in err
 
 
-@pytest.mark.parametrize("argv", [["serve", "--port", "0"], ["serve", "--f64"], ["bench"]])
+@pytest.mark.parametrize("argv", [
+    ["serve", "--resample-hz", "16000"], ["serve", "--f64"], ["bench"], ["serve", "--data-parallel", "2"],
+])
 def test_serve_and_bench_not_yet_ported(argv, capsys):
+    """`bench` and serving over several cards are not ported; `serve` refuses
+    --resample-hz and --f64 with voxtpu's messages. All exit 2, card or not."""
     assert tcli.main(argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if argv[1:2] in (["--resample-hz"], ["--f64"]):
+        assert jcli.main(argv) == 2
+        assert err == capsys.readouterr().err
+    else:
+        assert "not yet ported" in err
 
 
 def test_sharded_over_several_cards_not_yet_ported(monkeypatch, capsys):
@@ -400,6 +409,42 @@ def test_without_a_card_the_command_refuses(capsys):
         pytest.skip("a CUDA device is present: the command would run there")
     assert tcli.main(["analyze", WAV]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_serve_command_answers_and_stops_on_sigint(tmp_path):
+    """`python -m voxtpu_torch serve --device cpu` in a new process: warm-up,
+    its "serving on" line, one WAV answered as the in-process analysis
+    answers it, and exit 0 on SIGINT."""
+    import select
+    import signal
+    import urllib.request
+
+    from voxtpu_torch.pipeline import analyze
+
+    wav = tmp_path / "a.wav"
+    _write_sine_wav(wav, 220.0, sr=8000, seconds=0.5)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-m", "voxtpu_torch", "serve", "--port", "0", "--device", "cpu",
+                             "--allowed-rates", "8000", "--bucket-frames", "64", "--max-batch", "1"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline() if select.select([proc.stdout], [], [], 120)[0] else ""
+        assert line.startswith("voxtpu serving on http://127.0.0.1:"), (line, proc.stderr.read() if proc.poll() else "")
+        url = line.split()[3]
+        req = urllib.request.Request(f"{url}/analyze?format=npz", data=wav.read_bytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = np.load(io.BytesIO(r.read()))
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    samples, sr = tcli._read(str(wav), np.float32)
+    want = analyze(torch.as_tensor(samples), tcli.build_analysis_config(sr))
+    for k in ("f0", "rms", "formant_freqs", "mfcc", "status"):
+        np.testing.assert_allclose(got[k], want[k].numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
+    assert "warming up" in proc.stderr.read()
 
 
 def test_module_entry_point(tmp_path):

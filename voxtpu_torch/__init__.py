@@ -21,8 +21,9 @@ Entry points (`voxtpu_torch.pipeline`): `analyze`, `analyze_batch`,
 `analyze_batch_padded`, `analyze_long`, `StreamAnalyzer`. They run on the
 card unless handed a tensor elsewhere or device="cpu"
 (`voxtpu_torch.device`). The command line, `python -m voxtpu_torch
-analyze|corpus` (`voxtpu_torch.cli`), runs on the card unless given
-`--device cpu`; `voxtpu_torch.compat` holds the reference-shaped shims and
+analyze|corpus|serve` (`voxtpu_torch.cli`; the HTTP daemon is
+`voxtpu_torch.serve`), runs on the card unless given `--device cpu`;
+`voxtpu_torch.compat` holds the reference-shaped shims and
 `voxtpu_torch.profiling` the timing helpers.
 """
 

@@ -1,18 +1,20 @@
-"""Command-line driver: `python -m voxtpu_torch analyze|corpus`.
+"""The command line: `python -m voxtpu_torch analyze|corpus|serve`.
 
 Port of voxtpu.cli. `analyze` writes one recording's features as gnuplot
 columns, an .npz or a .parquet file, or a plot; `corpus` analyses many
 files into a feature directory with a resume manifest, in blocks of
 `--batch-files` recordings (one packed program and one device-to-host
-copy a block) or one file at a time.
+copy a block) or one file at a time; `serve` runs the HTTP daemon
+(voxtpu_torch.serve).
 
 Work runs on the CUDA card. `--device cpu` runs on the CPU instead; without
 a card and without it, the command prints the `NoCudaDevice` error and
 exits 1 (`voxtpu_torch.device`). `--f64` is float64 on the card: the
 kernels take double.
 
-Not ported yet (ROADMAP.md §1): `serve`, `bench` and `corpus --sharded`
-over more than one CUDA device parse their flags and exit 2.
+Not ported yet (ROADMAP.md §1): `bench`, and `serve --data-parallel` and
+`corpus --sharded` over more than one CUDA device, parse their flags and
+exit 2.
 voxtpu's `_setup_compile_cache` has no counterpart: PyTorch compiles
 nothing per shape, and the kernels' build is cached by
 `voxtpu_torch.ops.kernels`.
@@ -510,6 +512,85 @@ def cmd_corpus(args, device) -> int:
     return 0
 
 
+def _serve_refusal(args) -> str | None:
+    """Why `serve` refuses these flags (exit 2), or None. Checked before the
+    device is resolved, so the answer does not depend on a card."""
+    if args.resample_hz:
+        return ("serve does not support --resample-hz (requests are analyzed at each file's native rate; "
+                "resample offline or use `analyze`)")
+    if args.f64:
+        return "serve is the float32 fast path; --f64 parity mode is offline-only (`analyze`/`corpus`)"
+    if args.data_parallel > 1:
+        return f"serve --data-parallel {args.data_parallel} over several cards is {NOT_PORTED}"
+    return None
+
+
+def cmd_serve(args, device) -> int:
+    """Run the serving daemon (voxtpu_torch.serve) on `device`: the kernels
+    built and each warm shape run once before the first request, bucket-ladder
+    shapes, micro-batched dispatches."""
+    from voxtpu_torch.serve import ServeConfig, VoxServer
+
+    defaults = {
+        "frame_ms": args.frame_ms,
+        "hop_ms": args.hop_ms,
+        "features": args.features,
+        "fmin": args.fmin,
+        "fmax": args.fmax,
+        "threshold": args.threshold,
+        "n_coeffs": args.n_coeffs,
+        "mfcc_coeffs": args.mfcc_coeffs,
+        "pitch_refine": args.pitch_refine,
+        "refine_depth": args.refine_depth,
+        "viterbi": args.viterbi,
+        "channel": args.channel,
+    }
+    allowed_rates = ()
+    if args.allowed_rates:
+        try:
+            allowed_rates = tuple(float(r) for r in str(args.allowed_rates).split(",") if r.strip())
+        except ValueError:
+            print(f"error: bad --allowed-rates: {args.allowed_rates!r} (expected comma-separated Hz values)",
+                  file=sys.stderr)
+            return 2
+        if not all(r > 0 for r in allowed_rates) or not allowed_rates:
+            print("error: --allowed-rates values must be > 0", file=sys.stderr)
+            return 2
+    if args.no_param_overrides and not allowed_rates:
+        # The WAV header's sample rate sets the frame length, so locking the
+        # analysis params without pinning rates still lets clients pick shapes.
+        print(
+            "warning: --no-param-overrides without --allowed-rates: clients "
+            "can still choose the frame length by cycling WAV header sample "
+            "rates; add --allowed-rates 44100,16000,... to close it",
+            file=sys.stderr,
+        )
+    server = VoxServer(
+        ServeConfig(
+            host=args.host,
+            port=args.port,
+            window_ms=args.window_ms,
+            max_batch=args.max_batch,
+            data_parallel=args.data_parallel,
+            bucket=_resolve_bucket(args),
+            pipeline_depth=args.pipeline_depth,
+            allow_param_overrides=not args.no_param_overrides,
+            allowed_rates=allowed_rates,
+            stream_chunk_frames=args.stream_chunk_frames,
+            defaults=defaults,
+            device=str(device),
+        )
+    )
+    if not args.no_warmup:
+        print("warming up (kernel build and first runs)...", file=sys.stderr, flush=True)
+        if allowed_rates:
+            server.warmup()  # every pinned rate serves its first request warm
+        else:
+            server.warmup(sample_rate=args.warmup_hz)
+    server.serve_forever()
+    return 0
+
+
 def _cuda_device_count() -> int:
     import torch
 
@@ -587,20 +668,30 @@ def main(argv=None) -> int:
     common(sc)
     sc.set_defaults(fn=cmd_corpus)
 
-    ss = sub.add_parser("serve", help=f"serve the pipeline over HTTP ({NOT_PORTED})")
+    ss = sub.add_parser("serve", help="serve the pipeline over HTTP (micro-batched dispatches, /stream sessions)")
     ss.add_argument("--host", default="127.0.0.1")
     ss.add_argument("--port", type=int, default=8080)
-    ss.add_argument("--window-ms", type=float, default=3.0)
-    ss.add_argument("--max-batch", type=int, default=8)
-    ss.add_argument("--data-parallel", type=int, default=1, metavar="N")
-    ss.add_argument("--no-warmup", action="store_true")
-    ss.add_argument("--no-param-overrides", action="store_true")
-    ss.add_argument("--allowed-rates", default="", metavar="HZ,HZ,...")
-    ss.add_argument("--stream-chunk-frames", type=int, default=512, metavar="N")
-    ss.add_argument("--pipeline-depth", type=int, default=1, metavar="N")
-    ss.add_argument("--warmup-hz", type=float, default=44100.0)
+    ss.add_argument("--window-ms", type=float, default=3.0,
+                    help="micro-batch gather window after the first queued request")
+    ss.add_argument("--max-batch", type=int, default=8,
+                    help="files per device dispatch (batch axis pads to powers of two)")
+    ss.add_argument("--data-parallel", type=int, default=1, metavar="N",
+                    help=f"cards on the 'files' axis; above 1 {NOT_PORTED}")
+    ss.add_argument("--no-warmup", action="store_true",
+                    help="skip the kernel build and first runs of the default config at startup")
+    ss.add_argument("--no-param-overrides", action="store_true",
+                    help="reject per-request analysis parameter overrides (channel/format/viterbi stay available)")
+    ss.add_argument("--allowed-rates", default="", metavar="HZ,HZ,...",
+                    help="sample rates accepted from request WAV headers / stream opens (comma-separated; empty = "
+                         "any); every pinned rate is warmed at startup")
+    ss.add_argument("--stream-chunk-frames", type=int, default=512, metavar="N",
+                    help="frames per /stream session chunk")
+    ss.add_argument("--pipeline-depth", type=int, default=1, metavar="N",
+                    help="dispatched-but-undrained batches in flight while the next batch dispatches (1 = "
+                         "double-buffered, 0 = drain each batch first)")
+    ss.add_argument("--warmup-hz", type=float, default=44100.0, help="sample rate the warm-up assumes")
     common(ss)
-    ss.set_defaults(fn=cmd_not_ported)
+    ss.set_defaults(fn=cmd_serve)
 
     sb = sub.add_parser("bench", help=f"run the throughput benchmark ({NOT_PORTED})")
     sb.set_defaults(fn=cmd_not_ported)
@@ -614,6 +705,9 @@ def main(argv=None) -> int:
             return 2
     if args.fn is cmd_not_ported:
         return cmd_not_ported(args)
+    if args.fn is cmd_serve and (why := _serve_refusal(args)):
+        print(f"error: {why}", file=sys.stderr)
+        return 2
 
     from voxtpu_torch.device import NoCudaDevice, resolve_device
 

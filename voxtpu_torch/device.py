@@ -11,10 +11,12 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-__all__ = ["NoCudaDevice", "resolve_device", "as_input"]
+__all__ = ["NoCudaDevice", "resolve_device", "as_input", "constant"]
 
 
 class NoCudaDevice(RuntimeError):
@@ -38,3 +40,14 @@ def as_input(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(resolve_device(device))
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def constant(make, *args, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`make(*args)` (a window, a matrix: NumPy) as a `dtype` tensor on
+    `device`, made and copied once for each (make, args, dtype, device) and
+    then shared, so callers must not write to it. A copy from host memory to
+    the card waits for the device to finish its queued work; cached, the
+    pipeline's constants cost that wait on the first call alone, and a
+    warm call queues its work without waiting."""
+    return torch.as_tensor(np.asarray(make(*args)), dtype=dtype, device=device)

@@ -16,6 +16,7 @@ import math
 import torch
 
 from voxtpu_torch.cplx import C
+from voxtpu_torch.device import constant
 from voxtpu_torch.lpc import burg
 from voxtpu_torch.ops.formant_scan import formant_scan
 from voxtpu_torch.resonance import resonances_from_roots, sort_and_pack_resonances
@@ -237,7 +238,7 @@ def formant_candidates(
     else:
         out_len = n
         buf = frames
-    buf = buf * torch.as_tensor(hann(out_len), dtype=dt, device=dev)
+    buf = buf * constant(hann, out_len, dtype=dt, device=dev)
 
     coeffs, status = burg(buf, n_coeffs)
     # index k holds the coefficient of z^k; the top coefficient is 1 (lib.rs:76-91)

@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from voxtpu_torch.device import constant
+
 __all__ = ["hz_to_mel", "mel_to_hz", "dct", "dct_matrix", "mel_banks", "mfcc"]
 
 
@@ -51,7 +53,7 @@ def dct_matrix(n: int) -> np.ndarray:
 def dct(x: torch.Tensor) -> torch.Tensor:
     """DCT-II along the last axis (matmul form, true fp32 on the card)."""
     _pin_fp32_matmul()
-    mat = torch.as_tensor(dct_matrix(x.shape[-1]), dtype=x.dtype, device=x.device)
+    mat = constant(dct_matrix, x.shape[-1], dtype=x.dtype, device=x.device)
     return torch.matmul(x, mat.T)
 
 
@@ -105,6 +107,11 @@ def _folded_banks(n, num_coeffs, freq_lo, freq_hi, sample_rate, exact):
     return (w_pow @ fold).T, (w_mag @ fold).T
 
 
+def _folded_bank(which, *args) -> np.ndarray:
+    """One of `_folded_banks(*args)`: 0 the power weights, 1 the magnitude's."""
+    return _folded_banks(*args)[which]
+
+
 def mfcc(
     x: torch.Tensor,
     num_coeffs: int,
@@ -119,10 +126,9 @@ def mfcc(
     """
     n = x.shape[-1]
     dt = x.dtype
-    wp_np, wm_np = _folded_banks(n, num_coeffs, float(freq_bounds[0]),
-                                 float(freq_bounds[1]), float(sample_rate), exact)
-    wp = torch.as_tensor(wp_np, dtype=dt, device=x.device)
-    wm = torch.as_tensor(wm_np, dtype=dt, device=x.device)
+    bank = (n, num_coeffs, float(freq_bounds[0]), float(freq_bounds[1]), float(sample_rate), exact)
+    wp = constant(_folded_bank, 0, *bank, dtype=dt, device=x.device)
+    wm = constant(_folded_bank, 1, *bank, dtype=dt, device=x.device)
 
     if half_power is None:
         spec = torch.fft.rfft(x, dim=-1)

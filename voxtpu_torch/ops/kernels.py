@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -57,6 +58,11 @@ _SIGNATURES = {
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# Held around the first build and load. `functools.cache` does not stop two
+# threads (a server's dispatcher and its stream handlers) from running
+# `library()`'s body at once, and `build()` names its objects by process,
+# so two threads of one process would write the same object files.
+_LIBRARY_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -131,8 +137,7 @@ def build() -> Path:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this checkout has none."""
+def _load() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         build()
@@ -145,6 +150,17 @@ def library() -> ctypes.CDLL:
     lib.vt_error_string.argtypes = [ctypes.c_int]
     lib.vt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this checkout has none.
+    Thread-safe: the first caller builds and loads, the others wait for it
+    and get the same handle."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+library.cache_clear = _load.cache_clear  # forget the handle (tests)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -39,7 +39,7 @@ import torch
 
 from voxtpu_torch import errors, waves
 from voxtpu_torch.autocorr import power_and_autocorrelate
-from voxtpu_torch.device import as_input
+from voxtpu_torch.device import as_input, constant
 from voxtpu_torch.formants import (
     MALE_FORMANT_ESTIMATES, find_formants, formant_candidates, formant_tracker_batched,
 )
@@ -211,7 +211,7 @@ def analyze_frames(
     dt, dev = frames.dtype, frames.device
     out: dict = {}
 
-    window = torch.as_tensor(hann(n), dtype=dt, device=dev)
+    window = constant(hann, n, dtype=dt, device=dev)
     windowed = frames * window
 
     out["rms"] = waves.rms(frames)
@@ -330,7 +330,7 @@ def analyze_batch(frames, config: AnalysisConfig, device=None) -> dict:
     out = analyze_frames(frames.reshape(-1, n), inner, return_formant_candidates=do_formants)
     out = {k: v.reshape((B, F) + v.shape[1:]) for k, v in out.items()}
     if do_formants:
-        est_f = torch.as_tensor(config.formant.estimates, dtype=frames.dtype, device=frames.device)
+        est_f = constant(np.asarray, config.formant.estimates, dtype=frames.dtype, device=frames.device)
         est_b = torch.full_like(est_f, config.formant.estimate_bandwidth)
         out["formant_freqs"], out["formant_bws"] = formant_tracker_batched(
             out.pop("resonance_freqs"), out.pop("resonance_bws"), est_f, est_b,
@@ -459,9 +459,26 @@ class StreamAnalyzer:
     chunks). The samples live on `device` (voxtpu_torch.device.as_input):
     with device=None the first block decides, a tensor keeping its device
     and anything else going to the card.
+
+    Two hooks replace the per-chunk analysis, for runtimes that pack the
+    features into fewer device-to-host copies (voxtpu_torch.serve), as in
+    voxtpu.pipeline.StreamAnalyzer; pass at most one:
+    - step(frames, nf, est) -> (features, next_est): `frames` the
+      (chunk_frames, n) frames on the device, rows from nf on zero, `nf` the
+      real frame count, `est` the opaque carry (None first). The features
+      must include `_stream_local_peak`.
+    - step_samples(samples, nf, est) -> (features, next_est): the host
+      sample buffer instead, a NumPy array zero-padded to
+      (chunk_frames - 1) * hop + frame_len samples. The buffer then stays
+      on the host (`device` is unused); the callee frames and must treat
+      frame rows from nf on as absent (they overlap the real tail samples).
+    A hook's features are trimmed to nf frames here.
     """
 
-    def __init__(self, config: AnalysisConfig, chunk_frames: int = 512, device=None):
+    def __init__(self, config: AnalysisConfig, chunk_frames: int = 512, step=None, step_samples=None,
+                 device=None):
+        if step is not None and step_samples is not None:
+            raise ValueError("pass step or step_samples, not both")
         if config.pitch.enabled and config.pitch.viterbi:
             raise ValueError(
                 "streaming analysis cannot run Viterbi (whole-recording DP); "
@@ -473,16 +490,30 @@ class StreamAnalyzer:
         self._hop, self._n = config.hop, config.frame_len
         self._chunk_samples = (self.chunk_frames - 1) * self._hop + self._n
         self._device = device
+        self._step = step
+        self._step_samples = step_samples
         self._est = None
         self._buf = None
         self.frames_done = 0
 
     def _emit_chunk(self, nf: int) -> dict:
-        frames = frame_signal(self._buf[: (nf - 1) * self._hop + self._n], self._n, self._hop)
-        out = analyze_frames(frames, self.config, formant_estimates=self._est)
-        if self.config.formant.enabled:
-            self._est = (out["formant_freqs"][-1], out["formant_bws"][-1])
-        out["_stream_local_peak"] = _local_peak(frames)
+        L = (nf - 1) * self._hop + self._n
+        if self._step_samples is not None:
+            pad = np.zeros((self._chunk_samples,), self._buf.dtype)
+            pad[:L] = self._buf[:L]
+            out, self._est = self._step_samples(pad, nf, self._est)
+            out = {k: v[:nf] for k, v in out.items()}
+        elif self._step is not None:
+            frames = frame_signal(self._buf[:L], self._n, self._hop)
+            frames = torch.nn.functional.pad(frames, (0, 0, 0, self.chunk_frames - nf))
+            out, self._est = self._step(frames, nf, self._est)
+            out = {k: v[:nf] for k, v in out.items()}
+        else:
+            frames = frame_signal(self._buf[:L], self._n, self._hop)
+            out = analyze_frames(frames, self.config, formant_estimates=self._est)
+            if self.config.formant.enabled:
+                self._est = (out["formant_freqs"][-1], out["formant_bws"][-1])
+            out["_stream_local_peak"] = _local_peak(frames)
         self._buf = self._buf[nf * self._hop :]  # keep the overlap tail
         self.frames_done += nf
         return out
@@ -493,10 +524,15 @@ class StreamAnalyzer:
 
     def feed(self, block) -> list:
         """Append a sample block; return the completed chunks it unlocked."""
-        block = as_input(block, self._device).reshape(-1)
-        self._device = block.device
-        if block.numel():
-            self._buf = block if self._buf is None else torch.cat([self._buf, block])
+        if self._step_samples is not None:
+            block = np.asarray(block).ravel()
+            cat = np.concatenate
+        else:
+            block = as_input(block, self._device).reshape(-1)
+            self._device = block.device
+            cat = torch.cat
+        if block.shape[0]:
+            self._buf = block if self._buf is None else cat([self._buf, block])
         chunks = []
         while self._buf is not None and self._buf.shape[0] >= self._chunk_samples:
             chunks.append(self._emit_chunk(self.chunk_frames))

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from voxtpu_torch.autocorr import autocorrelate
+from voxtpu_torch.device import constant
 from voxtpu_torch.ops.pitch_pre import pitch_pre
 from voxtpu_torch.ops.refine import refine as refine_op
 from voxtpu_torch.sinc import _max_effective_depth, improve_extremum_sinc
@@ -68,7 +69,7 @@ def lag_candidates(
     # zeroing, 2n pad, 3-point maxima, parabolic frequency, band filter;
     # kernel G on the card.
     ac = autocorrelate(frames, n) if precomputed_ac is None else precomputed_ac
-    hl = torch.as_tensor(hanning_lag(n), dtype=dt, device=dev)
+    hl = constant(hanning_lag, n, dtype=dt, device=dev)
     self_lag, freq_l, cand_l = pitch_pre(ac, hl, bi, sample_rate, fmin, fmax)
     cand, freq = cand_l[:, 1 : bi - 1], freq_l[:, 1 : bi - 1]  # centers 1..bi-2
     ix = torch.arange(1, bi - 1, device=dev)
