@@ -124,7 +124,27 @@ checkout. Phases, each an uncaught exception when it fails:
    viterbi=1 close bit for bit with its path search; `python3 -m
    voxtpu_torch serve` as a new process answering one request as the
    in-process server does and exiting 0 on SIGINT. Each run's launches are
-   counted; every kernel must have run in the phase.
+   counted; every kernel must have run in the phase;
+12. sharded (`check_sharded`), float32, every mesh listing the one card
+   several times (PyTorch has no virtual devices; distinct cards would
+   overlap, this card runs the blocks in turn): `dist.sharded_analyze` at
+   the CLI defaults over the 35,689 frames on a 1x4 mesh (the last shard
+   padded), exact: formants bit for bit with `analyze`, the other keys
+   within `hold_sharded`'s tolerances, the values not bit-equal counted,
+   one run under `set_sync_debug_mode("error")`, G, A, B, C and P once a
+   block and D once; the same with --viterbi, F once over the gathered
+   candidates, bit for bit with `pitch_path` over them; the halo mode
+   (overlap 8) bit for bit with its composition on the card (the
+   recording's resonances, each shard's [zeros or left tail | own]
+   through D); `cli.corpus_sharded` at BENCH_44K over the 16 corpus
+   recordings on a 2x2 mesh, each file against its `analyze_batch_padded`
+   row; `serve.dispatch_split` over the card twice against one dispatch,
+   and a data_parallel 2 server's dispatch with no host sync, bit for bit;
+   `dist.dryrun_multichip(4)` on the card listed 4 times; and
+   `dist.launch_multiprocess_dryrun` with two ranks sharing the card over
+   gloo (NCCL takes one rank a card). It times the 1x4 exact run and
+   `analyze` of the same recording, each beside its launches. Every kernel
+   must have run in the phase.
 
 Each phase prints the seconds it took.
 
@@ -2054,7 +2074,7 @@ def check_serve(one: np.ndarray, sr: float, card: str, checks: Checks, run_count
                     pending is not None and not errors, errors[0][-1500:] if errors else "")
         if pending is not None:
             srv.batcher._drain(pending)
-            dev_s = pending[5].seconds()
+            dev_s = sum(t.seconds() for t in pending[5])
             numbers["dispatch"] = {"host_ms": 1e3 * host_s, "device_ms": 1e3 * dev_s, "recordings": len(items)}
             print(f"serve dispatch of {len(items)} recording(s) at (B, Fp) = ({len(items)}, {Fp}): host "
                   f"{1e3 * host_s:.2f} ms to stack and launch, device {1e3 * dev_s:.2f} ms [{card}]")
@@ -2192,6 +2212,247 @@ def check_serve(one: np.ndarray, sr: float, card: str, checks: Checks, run_count
     print(f"serve phase launches: {launches}; in all {total}")
     for name in KERNELS:
         checks.true(f"serve phase: {name} launched", total[name] >= 1, f"({total[name]})")
+    return {"launches": launches, "total": total, "numbers": numbers}
+
+
+def bits_apart_t(got: dict, want: dict) -> dict:
+    """`bits_apart` for tensor dicts (moved to the host)."""
+    return bits_apart({k: v.cpu().numpy() for k, v in got.items()}, {k: v.cpu().numpy() for k, v in want.items()})
+
+
+def hold_sharded(name: str, got: dict, want: dict, sample_rate: float, checks: Checks) -> dict:
+    """Phase 12's rule for a sharded output against its unsharded twin on
+    the card: formant freqs and bandwidths bit for bit (kernel D sees the
+    same resonances: A, B, C and P are row-invariant, phase 3); f0 and
+    f0_strength at the slice test's tolerance (rtol 1e-5, 5e-3 on the
+    knife edge); RMS at rtol 1e-6, a few float32 ulps (PyTorch's row
+    reduction splits a row another way at another row count: 4,201 of the
+    CLI path's 35,689 frames part by up to 3e-8); MFCC within BUDGETS
+    (cuBLAS picks its GEMM by the product's rows, phase 11); status and
+    hnr_db's finite frames equal. Returns and prints the values not
+    bit-equal, by key."""
+    import torch
+
+    got = {k: v.cpu() for k, v in got.items()}
+    want = {k: v.cpu() for k, v in want.items()}
+    apart = bits_apart_t(got, want)
+    print(f"  {name}: values not bit-equal by key {apart} of {sum(v.numel() for v in want.values())}")
+    for key in ("formant_freqs", "formant_bws"):
+        checks.true(f"{name} {key} bit for bit", apart[key] == 0, f"({apart[key]} apart)")
+    for key in ("f0", "f0_strength"):
+        rt = knife_rtol(want["f0"], sample_rate, 1e-5)
+        err = (got[key] - want[key]).abs()
+        nbad = int((err > 1e-8 + rt * want[key].abs()).sum())
+        checks.true(f"{name} {key}", nbad == 0, f"max_abs_err {float(err.max()):.3e}, {nbad} outside")
+    checks.close(f"{name} rms", got["rms"], want["rms"], 1e-6, 0.0)
+    checks.close(f"{name} mfcc", got["mfcc"], want["mfcc"], 0.0, BUDGETS["mfcc"])
+    checks.equal(f"{name} status", got["status"], want["status"])
+    checks.equal(f"{name} hnr_db finite", torch.isfinite(got["hnr_db"]), torch.isfinite(want["hnr_db"]))
+    return apart
+
+
+def check_sharded(sig32, recs: list, lengths: list, card: str, checks: Checks, run_counted, dev) -> dict:
+    """Phase 12: `voxtpu_torch.dist` and its entry points on the one card,
+    every mesh listing it several times (see the module docstring).
+    Returns the launches of each counted run and the phase's numbers."""
+    import torch
+
+    from voxtpu_torch import cli, dist, serve
+    from voxtpu_torch.formants import formant_tracker_batched
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.pipeline import (
+        BENCH_44K, CLI_DEFAULT_44K, _local_peak, _path_outputs, analyze, analyze_batch_padded, analyze_frames,
+    )
+
+    cfg, vcfg = CLI_DEFAULT_44K, with_viterbi(CLI_DEFAULT_44K)
+    sr = cfg.sample_rate
+    launches, numbers = {}, {}
+    mesh = dist.make_mesh(1, 4, [dev] * 4)
+    frames = frame_signal(sig32, cfg.frame_len, cfg.hop)
+    F = frames.shape[0]
+    print(f"sharded: {mesh}, CLI path float32, {F} frames (4 shards of {-(-F // 4)}, the last padded)")
+
+    # Exact mode at full width, against the card's own `analyze`.
+    analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)
+    want, launches["analyze"] = run_counted("analyze, CLI path float32", lambda: analyze(sig32, cfg))
+    got, launches["exact"] = run_counted("sharded_analyze 1x4 exact, CLI path float32",
+                                         lambda: dist.sharded_analyze(frames[None], cfg, mesh))
+    got = {k: v[0] for k, v in got.items()}
+    checks.true("sharded 1x4: keys and shapes equal analyze's", got.keys() == want.keys()
+                and all(got[k].shape == want[k].shape for k in want))
+    for name in ("pitch_pre", "refine", "burg", "find_roots", "polish"):
+        checks.true(f"sharded 1x4: {name} launched once a block", launches["exact"][name] == 4,
+                    f"({launches['exact'][name]})")
+    checks.true("sharded 1x4: formant_scan once for the files row, ct_fused and viterbi not at all",
+                launches["exact"]["formant_scan"] == 1 and launches["exact"]["ct_fused"] == 0
+                and launches["exact"]["viterbi"] == 0, f"{launches['exact']}")
+    numbers["exact_bits_apart"] = hold_sharded("sharded 1x4 exact vs analyze", got, want, sr, checks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dist.sharded_analyze(frames[None], cfg, mesh)
+        synced = ""
+    except RuntimeError as e:
+        synced = str(e)[-1500:]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    checks.true("sharded 1x4 exact ran with no host sync (set_sync_debug_mode('error'))", not synced, synced)
+    numbers["exact_ms"] = sync_ms(lambda: dist.sharded_analyze(frames[None], cfg, mesh))
+    numbers["analyze_ms"] = sync_ms(lambda: analyze(sig32, cfg))
+    print(f"sharded_analyze 1x4 exact: {numbers['exact_ms']:.2f} ms, launches {launches['exact']}; analyze of the "
+          f"same recording: {numbers['analyze_ms']:.2f} ms, launches {launches['analyze']} (one card listed four "
+          f"times: the blocks run in turn) [{card}]")
+
+    # Viterbi on: kernel F once over the gathered candidates.
+    vwant = analyze(sig32, vcfg)
+    vgot, launches["viterbi"] = run_counted("sharded_analyze 1x4 exact with --viterbi, CLI path float32",
+                                            lambda: dist.sharded_analyze(frames[None], vcfg, mesh))
+    vgot = {k: v[0] for k, v in vgot.items()}
+    checks.true("sharded 1x4 viterbi: viterbi and formant_scan once for the files row",
+                launches["viterbi"]["viterbi"] == 1 and launches["viterbi"]["formant_scan"] == 1,
+                f"{launches['viterbi']}")
+    numbers["viterbi_bits_apart"] = hold_sharded("sharded 1x4 viterbi vs analyze", vgot, vwant, sr, checks)
+    path = {k: v.cpu() for k, v in _path_outputs(vgot, vcfg, _local_peak(frames)).items()}
+    papart = bits_apart_t({k: vgot[k] for k in path}, path)
+    checks.true("sharded 1x4 viterbi: f0, f0_strength, hnr_db bit for bit with pitch_path over its gathered "
+                "candidates", not any(papart.values()), f"{papart}")
+    numbers["viterbi_ms"] = sync_ms(lambda: dist.sharded_analyze(frames[None], vcfg, mesh))
+    print(f"sharded_analyze 1x4 exact with --viterbi: {numbers['viterbi_ms']:.2f} ms, launches "
+          f"{launches['viterbi']} [{card}]")
+
+    # Halo mode, against the composition on the card: the padded recording's
+    # resonances, each shard's [zeros or left tail | own] through kernel D.
+    hgot, launches["halo"] = run_counted("sharded_analyze 1x4 halo (overlap 8), CLI path float32",
+                                         lambda: dist.sharded_analyze(frames[None], cfg, mesh, overlap=8, exact=False))
+    Fp, Fl, ov = -(-F // 4) * 4, -(-F // 4), 8
+    res = analyze_frames(torch.nn.functional.pad(frames, (0, 0, 0, Fp - F)), cfg, return_formant_candidates=True)
+    rf, rb = res["resonance_freqs"][None], res["resonance_bws"][None]
+    ef = torch.as_tensor(cfg.formant.estimates, dtype=torch.float32, device=dev)
+    eb = torch.full_like(ef, cfg.formant.estimate_bandwidth)
+    hf, hb = [], []
+    for j in range(4):
+        lo = j * Fl - ov
+        pf = rf[:, lo : j * Fl] if j else torch.zeros_like(rf[:, :ov])
+        pb = rb[:, lo : j * Fl] if j else torch.zeros_like(rb[:, :ov])
+        tf, tb = formant_tracker_batched(torch.cat([pf, rf[:, j * Fl : (j + 1) * Fl]], 1),
+                                         torch.cat([pb, rb[:, j * Fl : (j + 1) * Fl]], 1), ef, eb)
+        hf.append(tf[:, ov:])
+        hb.append(tb[:, ov:])
+    comp = {"formant_freqs": torch.cat(hf, 1)[0, :F], "formant_bws": torch.cat(hb, 1)[0, :F]}
+    hapart = bits_apart_t({k: hgot[k][0] for k in comp}, comp)
+    checks.true("sharded 1x4 halo: formants bit for bit with the composition on the card", not any(hapart.values()),
+                f"{hapart}")
+    checks.true("sharded 1x4 halo: formant_scan once a shard", launches["halo"]["formant_scan"] == 4,
+                f"({launches['halo']['formant_scan']})")
+    moved = int((hgot["formant_freqs"][0] != got["formant_freqs"]).any(-1).sum())
+    numbers["halo_frames_off_exact"] = moved
+    print(f"  halo mode: {moved} of {F} frames' formants differ from the exact carry (the shards' first frames)")
+
+    # The corpus block loop at BENCH_44K over the 16 recordings, 2x2 listed
+    # mesh, each file against its row of `analyze_batch_padded`.
+    bcfg = BENCH_44K
+    mesh22 = dist.make_mesh(2, 2, [dev] * 4)
+    rec32 = [torch.as_tensor(r, dtype=torch.float32, device=dev) for r in recs]
+    files_out = {}
+
+    def corpus():
+        cli.corpus_sharded(mesh22, list(range(len(recs))), bcfg,
+                           lambda b: frame_signal(rec32[b], bcfg.frame_len, bcfg.hop),
+                           save=files_out.__setitem__, read_error=lambda b, e: None)
+        return files_out
+
+    _, launches["corpus"] = run_counted("cli.corpus_sharded, 2x2 mesh, 16 recordings at BENCH_44K float32", corpus)
+    nblocks = -(-len(recs) // 2)
+    for name in ("pitch_pre", "refine", "burg", "find_roots", "polish", "ct_fused"):
+        checks.true(f"corpus_sharded 2x2: {name} once a grid block", launches["corpus"][name] == 4 * nblocks,
+                    f"({launches['corpus'][name]})")
+    checks.true("corpus_sharded 2x2: formant_scan once a files row", launches["corpus"]["formant_scan"] == 2 * nblocks,
+                f"({launches['corpus']['formant_scan']})")
+    block32 = torch.zeros((len(recs), max(lengths)), dtype=torch.float32, device=dev)
+    for b, r in enumerate(rec32):
+        block32[b, : len(r)] = r
+    ref = analyze_batch_padded(block32, lengths, bcfg)
+    capart = {}
+    for b in range(len(recs)):
+        nf = (lengths[b] - bcfg.frame_len) // bcfg.hop + 1
+        row = {k: v[b, :nf] for k, v in ref.items()}
+        got_b = {k: torch.as_tensor(v) for k, v in files_out[b].items()}
+        for k, n in hold_sharded(f"corpus_sharded file {b} vs its block row", got_b, row, sr, checks).items():
+            capart[k] = capart.get(k, 0) + n
+    numbers["corpus_bits_apart"] = capart
+    numbers["corpus_ms"] = sync_ms(corpus, runs=3)
+    print(f"corpus_sharded 2x2, 16 recordings ({sum(lengths) / sr:.1f} s): {numbers['corpus_ms']:.2f} ms with the "
+          f"copies to the host, launches {launches['corpus']} [{card}]")
+
+    # The serve split over the card listed twice against one dispatch.
+    scfg = cli.build_analysis_config(sr)
+    Fp_s = 1024
+    S = serve._samples_for_frames(scfg, Fp_s)
+    # Four recordings on the 1024 rung, 7.3-10.3 s, each cut to its framed samples.
+    srecs = []
+    for b in range(4):
+        nf = (min(len(recs[b]), S - b * int(sr)) - scfg.frame_len) // scfg.hop + 1
+        srecs.append(recs[b][: (nf - 1) * scfg.hop + scfg.frame_len].astype(np.float32))
+    stack = torch.zeros((4, S), dtype=torch.float32).pin_memory()
+    slen = torch.zeros((4,), dtype=torch.int64).pin_memory()
+    for i, r in enumerate(srecs):
+        stack[i, : len(r)] = torch.as_tensor(r)
+        slen[i] = len(r)
+    split = {}
+    for n in (1, 2):
+        (out, manifest, timers), launches[f"serve_split_{n}"] = run_counted(
+            f"serve.dispatch_split over {n} block(s) of 4 recordings", lambda: serve.dispatch_split(
+                stack, slen, scfg, [dev] * n, Fp_s))
+        split[n] = (serve._unpack_frames(out.numpy(), manifest), sum(t.seconds() for t in timers))
+    sapart = bits_apart(split[2][0], split[1][0])
+    checks.true("serve split over [cuda:0] * 2: bit for bit with one dispatch", not any(sapart.values()), f"{sapart}")
+    # The server takes its cards from `local_devices`; list the one card twice.
+    local_devices = serve.local_devices
+    serve.local_devices = lambda device: [dev] * 2
+    try:
+        srv = serve.VoxServer(serve.ServeConfig(port=0, max_batch=4, data_parallel=2, device=str(dev)))
+    finally:
+        serve.local_devices = local_devices
+    srv.start()  # shutdown() stops a started server
+    try:
+        items = [serve._Pending(r, (len(r) - scfg.frame_len) // scfg.hop + 1) for r in srecs[:3]]
+        key = (srv._config(sr, dict(srv.cfg.defaults)), Fp_s, scfg.frame_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = srv.batcher._dispatch(key, items)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        errors = [it.error for it in items if it.error]
+        checks.true("serve data_parallel 2: one dispatch split over two blocks with no host sync",
+                    pending is not None and not errors and len(pending[5]) == 2, errors[0][-1500:] if errors else "")
+        if pending is not None:
+            srv.batcher._drain(pending)
+            dapart = {}
+            for i, it in enumerate(items):
+                for k, n in bits_apart(it.result, {k: v[i, : it.F] for k, v in split[1][0].items()}).items():
+                    dapart[k] = dapart.get(k, 0) + n
+            checks.true("serve data_parallel 2: each answer bit for bit with one dispatch", not any(dapart.values()),
+                        f"{dapart}")
+    finally:
+        srv.shutdown()
+    numbers["serve_split_device_s"] = {n: split[n][1] for n in split}
+    print(f"serve dispatch_split of 4 recordings at (B, Fp) = (4, {Fp_s}): device time {1e3 * split[1][1]:.2f} ms in one "
+          f"block, {1e3 * split[2][1]:.2f} ms summed over two blocks on the one card [{card}]")
+
+    # The dryruns: the topology matrix on the card listed 4 times, then two
+    # ranks sharing the card over gloo (NCCL takes one rank a card).
+    _, launches["dryrun"] = run_counted("dist.dryrun_multichip(4) on [cuda:0] * 4",
+                                        lambda: dist.dryrun_multichip(4, devices=[dev] * 4))
+    t0 = time.perf_counter()
+    dist.launch_multiprocess_dryrun(n_devices=2, n_processes=2, timeout=300, device=str(dev), backend="gloo")
+    numbers["multiprocess_s"] = time.perf_counter() - t0
+    print(f"multiprocess dryrun (2 ranks over gloo on one card): {numbers['multiprocess_s']:.1f} s, process starts "
+          f"included [{card}]")
+    total = {name: sum(c[name] for k, c in launches.items() if k != "analyze") for name in KERNELS}
+    print(f"sharded phase launches: {launches}; in all (analyze's reference run aside) {total}")
+    for name in KERNELS:
+        checks.true(f"sharded phase: {name} launched", total[name] >= 1, f"({total[name]})")
     return {"launches": launches, "total": total, "numbers": numbers}
 
 
@@ -2817,6 +3078,12 @@ def main() -> None:
     for row in rows:
         row["launches_by_path"]["serve"] = serve["total"][row["name"]]
     phase_took("phase 11, serve")
+
+    # --- 12. sharded analysis over meshes that list the one card
+    sharded = check_sharded(sig32, recs, lengths, card, checks, run_counted, dev)
+    for row in rows:
+        row["launches_by_path"]["sharded"] = sharded["total"][row["name"]]
+    phase_took("phase 12, sharded")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
 
@@ -2828,7 +3095,8 @@ def main() -> None:
                       "before_p": {"e2e_ms": e2e_eager, "device": {k: device(v) for k, v in profs_eager.items()}},
                       "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF},
                       "corpus_command_s": {"first": corpus_wall, "second": corpus_warm},
-                      "serve": {**serve["numbers"], "launches": serve["launches"]}, "card": card}))
+                      "serve": {**serve["numbers"], "launches": serve["launches"]},
+                      "sharded": {**sharded["numbers"], "launches": sharded["launches"]}, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,7 @@ def test_port_imports_no_jax_and_no_voxtpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'voxtpu'))\n"
         "assert not bad, bad\n"
+        "assert {'voxtpu_torch.dist', 'voxtpu_torch._dist_worker'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('voxtpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -374,25 +374,88 @@ def test_cli_rejects_feature_typo(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--resample-hz", "16000"], ["serve", "--f64"], ["bench"], ["serve", "--data-parallel", "2"],
+    ["serve", "--resample-hz", "16000"], ["serve", "--f64"], ["bench"],
+    ["serve", "--data-parallel", "2", "--device", "cpu"],
 ])
 def test_serve_and_bench_not_yet_ported(argv, capsys):
-    """`bench` and serving over several cards are not ported; `serve` refuses
-    --resample-hz and --f64 with voxtpu's messages. All exit 2, card or not."""
+    """`bench` is not ported; `serve` refuses --resample-hz and --f64 with
+    voxtpu's messages, card or not, and --data-parallel above the device
+    count (the CPU is one device). All exit 2."""
     assert tcli.main(argv) == 2
     err = capsys.readouterr().err
     if argv[1:2] in (["--resample-hz"], ["--f64"]):
         assert jcli.main(argv) == 2
         assert err == capsys.readouterr().err
+    elif argv[1:2] == ["--data-parallel"]:
+        assert "data_parallel 2 > 1 devices" in err
     else:
         assert "not yet ported" in err
 
 
-def test_sharded_over_several_cards_not_yet_ported(monkeypatch, capsys):
+def test_sharded_mesh_takes_every_card(monkeypatch):
+    """`corpus --sharded` shards over every card, each once."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert tcli.main(["corpus", WAV, "--sharded"]) == 2
-    assert "--sharded over 2 devices is not yet ported" in capsys.readouterr().err
+    assert tcli._sharded_devices(torch.device("cuda")) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert tcli._sharded_devices(torch.device("cpu")) == [torch.device("cpu")]
+
+
+def _sharded_pair(tmp_path, monkeypatch, wavs: dict, extra=()):
+    """`corpus --sharded` over the CPU listed twice, and the serial
+    `corpus` (one file at a time) of the same WAVs, float64: their output
+    directories."""
+    wavdir = tmp_path / "wavs"
+    wavdir.mkdir()
+    for name, (f, secs) in wavs.items():
+        _write_sine_wav(wavdir / f"{name}.wav", f, seconds=secs)
+    monkeypatch.setattr(tcli, "_sharded_devices", lambda device: [torch.device("cpu")] * 2)
+    sharded, serial = tmp_path / "sharded", tmp_path / "serial"
+    glob_ = str(wavdir / "*.wav")
+    assert tmain(["corpus", glob_, "-o", str(sharded), "--f64", "--sharded", "--no-resume", *extra]) == 0
+    assert tmain(["corpus", glob_, "-o", str(serial), "--f64", "--batch-files", "1", "--no-resume", *extra]) == 0
+    return sharded, serial
+
+
+@pytest.mark.parametrize("n_files, mesh", [(1, {"files": 1, "frames": 2}), (3, {"files": 2, "frames": 1})])
+def test_corpus_sharded_matches_serial(tmp_path, monkeypatch, n_files, mesh):
+    """The sharded block loop over a mesh of two listed CPUs equals the
+    serial command per file (tests/test_cli.py:70-101's tolerances): one
+    file shards its frames (1x2); three take the files axis (2x1), the
+    second block padded with a zero file. The manifest records the mesh."""
+    wavs = dict(list({"a": (160.0, 0.45), "b": (220.0, 0.5), "c": (280.0, 0.55)}.items())[:n_files])
+    sharded, serial = _sharded_pair(tmp_path, monkeypatch, wavs)
+    manifest = json.loads((sharded / "manifest.json").read_text())
+    assert [v["mesh"] for v in manifest.values()] == [mesh] * n_files
+    for name in wavs:
+        z, z2 = _npz(sharded / f"{name}.npz"), _npz(serial / f"{name}.npz")
+        assert z.keys() == z2.keys()
+        for k in ("formant_freqs", "formant_bws", "rms", "mfcc", "status"):
+            np.testing.assert_allclose(z[k], z2[k], rtol=1e-9, err_msg=f"{name}:{k}")
+        np.testing.assert_allclose(z["f0"], z2["f0"], rtol=1e-6, err_msg=name)
+
+
+def test_corpus_sharded_viterbi(tmp_path, monkeypatch):
+    """--viterbi on the sharded loop: each file's path over its own trimmed
+    candidates (tests/test_cli.py:103-126)."""
+    sharded, serial = _sharded_pair(tmp_path, monkeypatch, {"x": (190.0, 0.5), "y": (260.0, 0.7)}, ["--viterbi"])
+    for name in ("x", "y"):
+        z, z2 = _npz(sharded / f"{name}.npz"), _npz(serial / f"{name}.npz")
+        np.testing.assert_allclose(z["f0"], z2["f0"], rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(z["f0_strength"], z2["f0_strength"], rtol=1e-6, err_msg=name)
+
+
+def test_corpus_sharded_bucketed_matches_serial(tmp_path, monkeypatch):
+    """--sharded with --bucket-frames 16: blocks pad to the bucket on the
+    mesh, files still equal the serial bucketed run (tests/test_cli.py:
+    280-300)."""
+    wavs = {"p": (170.0, 0.45), "q": (230.0, 0.6), "r": (310.0, 0.52)}
+    sharded, serial = _sharded_pair(tmp_path, monkeypatch, wavs, ["--bucket-frames", "16"])
+    for name in wavs:
+        z, z2 = _npz(sharded / f"{name}.npz"), _npz(serial / f"{name}.npz")
+        assert z["rms"].shape == z2["rms"].shape, name
+        for k in ("formant_freqs", "rms", "status"):
+            np.testing.assert_allclose(z[k], z2[k], rtol=1e-9, err_msg=f"{name}:{k}")
+        np.testing.assert_allclose(z["f0"], z2["f0"], rtol=1e-6, err_msg=name)
 
 
 def test_sharded_on_one_device_runs_serial(tmp_path, capsys):

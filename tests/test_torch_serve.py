@@ -16,7 +16,11 @@ tests/test_serve_stream.py (16 ms / 8 ms frames, bucket 64):
   equals its own `analyze`, viterbi=1 equals `pitch_path_host` over the
   trimmed candidates, errors leave the daemon up, locked overrides,
   allowed rates, submit after stop, and the device rule (`NoCudaDevice`
-  without a card, `data_parallel` above 1 not yet ported).
+  without a card, `data_parallel` above the card count refused);
+- data parallelism over the CPU listed several times: a server at
+  data_parallel 2 answers with the data_parallel 1 server's bytes, and
+  `dispatch_split` over four listed CPUs equals one dispatch, and it
+  refuses a batch the devices do not divide.
 """
 
 import http.client
@@ -411,7 +415,7 @@ def test_serve_locked_param_overrides_and_allowed_rates():
 
 
 def test_submit_after_stop_fails_fast():
-    b = tserve._MicroBatcher(tserve.ServeConfig(request_timeout_s=300.0), tserve._Stats(), torch.device("cpu"))
+    b = tserve._MicroBatcher(tserve.ServeConfig(request_timeout_s=300.0), tserve._Stats(), [torch.device("cpu")])
     b.stop()
     item = tserve._Pending(np.zeros(8, np.float32), 1)
     t0 = time.monotonic()
@@ -438,7 +442,8 @@ def test_failed_dispatch_answers_500_and_warmup_runs(monkeypatch):
 
 def test_device_rule_and_data_parallel(monkeypatch):
     """Without a card and without device="cpu" the server refuses to start;
-    data_parallel keeps voxtpu's checks and refuses above 1."""
+    data_parallel keeps voxtpu's checks and refuses more cards than there
+    are (voxtpu/serve.py:258-260), before it touches one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDevice):
         tserve.VoxServer(tserve.ServeConfig(port=0))
@@ -446,5 +451,83 @@ def test_device_rule_and_data_parallel(monkeypatch):
         tserve.VoxServer(tserve.ServeConfig(port=0, data_parallel=3, device="cpu"))
     with pytest.raises(ValueError, match="max_batch"):
         tserve.VoxServer(tserve.ServeConfig(port=0, data_parallel=8, max_batch=4, device="cpu"))
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="data_parallel 2 > 1 devices"):
         tserve.VoxServer(tserve.ServeConfig(port=0, data_parallel=2, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="data_parallel 4 > 2 devices"):
+        tserve.VoxServer(tserve.ServeConfig(port=0, data_parallel=4))
+
+
+def _responses(srv_kw, bodies, query="format=npz"):
+    """Every body posted at once to a new server (a long gather window, so
+    they coalesce into one batch); the raw responses and /stats."""
+    srv, host, port = _port_server(window_ms=500.0, max_batch=4, **srv_kw)
+    try:
+        results = [None] * len(bodies)
+
+        def go(i):
+            results[i] = _post(host, port, bodies[i], query=query)
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        return results, _get(host, port, "/stats")[1]
+    finally:
+        srv.shutdown()
+
+
+def test_data_parallel_2_answers_with_the_dp_1_bytes(monkeypatch):
+    """data_parallel 2 over the CPU listed twice: a batch of 2 or 3
+    requests (B = 2 or 4) splits into two blocks, and each answer equals the
+    data_parallel 1 server's, byte for byte."""
+    bodies = [_wav(_vowel(seconds=s, f0=f, seed=i), width=4)
+              for i, (s, f) in enumerate(((0.3, 120.0), (0.4, 160.0), (0.5, 200.0)))]
+    one, stats1 = _responses({}, bodies)
+    monkeypatch.setattr(tserve, "local_devices", lambda device: [torch.device("cpu")] * 2)
+    two, stats2 = _responses({"data_parallel": 2}, bodies)
+    for (st1, d1), (st2, d2) in zip(one, two):
+        assert st1 == st2 == 200, (d1[:300], d2[:300])
+        assert d1 == d2
+    # Coalesced (B >= 2), so the batch split over both blocks.
+    assert any(int(k) >= 2 for k in stats2["batch_size_hist"]) and stats2["device_time_s"] > 0
+
+
+def test_dispatch_split_over_four_equals_one_dispatch():
+    """`dispatch_split` over four listed CPUs (one recording a block)
+    against one dispatch of the whole batch, with the per-recording path
+    search on (tests/test_serve.py:103-135 holds voxtpu's sharded program
+    to its single-device one the same way)."""
+    import dataclasses
+
+    cfg = build_analysis_config(float(SR), **DEFAULTS)
+    cfg = dataclasses.replace(cfg, pitch=dataclasses.replace(cfg.pitch, viterbi=True))
+    xs = [_vowel(seconds=0.2 + 0.1 * i, f0=110.0 + 30 * i, seed=i) for i in range(4)]
+    S = tserve._samples_for_frames(cfg, 64)
+    stack = torch.zeros((4, S), dtype=torch.float32)
+    lengths = torch.zeros((4,), dtype=torch.int64)
+    for i, x in enumerate(xs):
+        stack[i, : len(x)] = torch.as_tensor(x)
+        lengths[i] = len(x)
+    outs = {}
+    for n in (1, 4):
+        out, manifest, timers = tserve.dispatch_split(stack, lengths, cfg, [torch.device("cpu")] * n, 64)
+        assert len(timers) == n and all(t.seconds() >= 0 for t in timers)
+        outs[n] = tserve._unpack_frames(out.numpy(), manifest)
+    assert outs[1].keys() == outs[4].keys()
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[4][k], outs[1][k], err_msg=k)
+
+
+def test_dispatch_split_refuses_a_batch_the_devices_do_not_divide():
+    """A batch that does not split into equal row blocks raises before any
+    launch, as voxtpu's packed analysis does (voxtpu/serve.py:257-258)."""
+    cfg = build_analysis_config(float(SR), **DEFAULTS)
+    S = tserve._samples_for_frames(cfg, 64)
+    stack = torch.zeros((3, S), dtype=torch.float32)
+    lengths = torch.zeros((3,), dtype=torch.int64)
+    with pytest.raises(ValueError, match="batch 3 not divisible by 2 devices"):
+        tserve.dispatch_split(stack, lengths, cfg, [torch.device("cpu")] * 2, 64)

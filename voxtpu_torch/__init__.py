@@ -22,9 +22,11 @@ Entry points (`voxtpu_torch.pipeline`): `analyze`, `analyze_batch`,
 card unless handed a tensor elsewhere or device="cpu"
 (`voxtpu_torch.device`). The command line, `python -m voxtpu_torch
 analyze|corpus|serve` (`voxtpu_torch.cli`; the HTTP daemon is
-`voxtpu_torch.serve`), runs on the card unless given `--device cpu`;
-`voxtpu_torch.compat` holds the reference-shaped shims and
-`voxtpu_torch.profiling` the timing helpers.
+`voxtpu_torch.serve`), runs on the card unless given `--device cpu`.
+`voxtpu_torch.dist` shards the analysis over a (files, frames) mesh of
+devices and runs the multi-process dryrun; `voxtpu_torch.compat` holds
+the reference-shaped shims and `voxtpu_torch.profiling` the timing
+helpers.
 """
 
 __all__ = ["pipeline"]

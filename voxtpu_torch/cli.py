@@ -4,17 +4,16 @@ Port of voxtpu.cli. `analyze` writes one recording's features as gnuplot
 columns, an .npz or a .parquet file, or a plot; `corpus` analyses many
 files into a feature directory with a resume manifest, in blocks of
 `--batch-files` recordings (one packed program and one device-to-host
-copy a block) or one file at a time; `serve` runs the HTTP daemon
-(voxtpu_torch.serve).
+copy a block) or one file at a time, or with `--sharded` over a
+(files, frames) mesh of every card (`corpus_sharded`, voxtpu_torch.dist);
+`serve` runs the HTTP daemon (voxtpu_torch.serve).
 
 Work runs on the CUDA card. `--device cpu` runs on the CPU instead; without
 a card and without it, the command prints the `NoCudaDevice` error and
 exits 1 (`voxtpu_torch.device`). `--f64` is float64 on the card: the
 kernels take double.
 
-Not ported yet (ROADMAP.md §1): `bench`, and `serve --data-parallel` and
-`corpus --sharded` over more than one CUDA device, parse their flags and
-exit 2.
+Not ported yet (ROADMAP.md §1): `bench` parses its flags and exits 2.
 voxtpu's `_setup_compile_cache` has no counterpart: PyTorch compiles
 nothing per shape, and the kernels' build is cached by
 `voxtpu_torch.ops.kernels`.
@@ -233,6 +232,59 @@ def _print_columns(out, hop, sample_rate, file=None):
         print(" ".join(cols), file=file)
 
 
+def corpus_sharded(mesh, recs: list, config, read_frames, save, read_error, bucket_frames: int = 0,
+                   viterbi: bool = False, prefetch=None) -> None:
+    """voxtpu's `corpus --sharded` block loop (voxtpu/cli.py:649-700) over
+    `mesh` (voxtpu_torch.dist.Mesh).
+
+    `recs` go in blocks of mesh.shape["files"]: `read_frames(rec)` gives a
+    recording's (F, n) frames on the mesh's first device, or raises one of
+    READ_ERRORS (then `read_error(rec, e)`). Each block's frames are
+    zero-padded on the device to its largest frame count (on the bucket
+    ladder, `_bucket_target`, when bucket_frames is set) and to the full
+    files axis, analyzed by `dist.sharded_analyze`, and each file trimmed
+    to its own frames; with `viterbi` the path runs over its trimmed
+    candidates (`_viterbi_post`). `save(rec, features)` gets host arrays.
+    `prefetch(recs)`, if given, sees each block's recordings and then the
+    next block's before the block is read."""
+    import torch
+
+    from voxtpu_torch.dist import sharded_analyze
+
+    files_axis = mesh.shape["files"]
+    for b0 in range(0, len(recs), files_axis):
+        if prefetch is not None:
+            prefetch(recs[b0 : b0 + 2 * files_axis])
+        block = []
+        for rec in recs[b0 : b0 + files_axis]:
+            try:
+                block.append((rec, read_frames(rec)))
+            except READ_ERRORS as e:
+                read_error(rec, e)
+        if not block:
+            continue
+        Fmax = max(fr.shape[0] for _r, fr in block)
+        if bucket_frames:
+            Fmax = _bucket_target(Fmax, bucket_frames)
+        # Zero frames are an exact no-op for the formant carry, and zero
+        # files fill the files axis; both are trimmed away below.
+        padded = [torch.nn.functional.pad(fr, (0, 0, 0, Fmax - fr.shape[0])) for _r, fr in block]
+        padded += [torch.zeros_like(padded[0])] * (files_axis - len(padded))
+        out = sharded_analyze(torch.stack(padded), config, mesh)
+        for i, (rec, frames) in enumerate(block):
+            file_out = {k: v[i, : frames.shape[0]] for k, v in out.items()}
+            if viterbi and config.pitch.enabled:
+                file_out = _viterbi_post(file_out, frames, config.pitch.fmax)
+            save(rec, _fetch(file_out))
+
+
+def _sharded_devices(device) -> list:
+    """The distinct devices `corpus --sharded` shards over."""
+    from voxtpu_torch.dist import local_devices
+
+    return local_devices(device)
+
+
 def _viterbi_post(out, frames, fmax):
     """Swap the take-best f0 track for the Viterbi path (with f0_strength
     and hnr_db), with the silence-aware intensity of the in-pipeline path."""
@@ -337,15 +389,15 @@ def cmd_analyze(args, device) -> int:
 
 def cmd_corpus(args, device) -> int:
     """Analyse many files: same-configuration files in blocks of
-    --batch-files recordings, or one at a time."""
+    --batch-files recordings, or one at a time; with --sharded over every
+    card, blocks over a (files, frames) mesh (`corpus_sharded`)."""
+    from voxtpu_torch.dist import make_mesh
     from voxtpu_torch.frame import frame_signal
     from voxtpu_torch.pipeline import analyze_batch_padded_fetch, analyze_frames
 
-    if args.sharded:
-        n_dev = 1 if device.type == "cpu" else _cuda_device_count()
-        if n_dev > 1:
-            print(f"error: corpus --sharded over {n_dev} devices is {NOT_PORTED}", file=sys.stderr)
-            return 2
+    devices = _sharded_devices(device) if args.sharded else [device]
+    n_dev = len(devices)
+    if args.sharded and n_dev == 1:
         print("--sharded requested but only 1 device; running serial", file=sys.stderr)
 
     paths = []
@@ -373,7 +425,7 @@ def cmd_corpus(args, device) -> int:
         with open(manifest_path, "w") as f:
             json.dump(manifest, f, indent=2)
 
-    def save(path, out, sr):
+    def save(path, out, sr, mesh_desc=None):
         ext = ".parquet" if args.format == "parquet" else ".npz"
         base = os.path.splitext(os.path.basename(path))[0]
         name = base + ext
@@ -389,7 +441,7 @@ def cmd_corpus(args, device) -> int:
             "sample_rate": sr,
             "mtime": os.path.getmtime(path),
             "status_nonzero": int(np.count_nonzero(out.get("status", np.zeros(1)))),
-            "mesh": None,
+            "mesh": mesh_desc,
         }
         print(f"{path}: {manifest[path]['frames']} frames", file=sys.stderr)
         flush_manifest()
@@ -436,6 +488,25 @@ def cmd_corpus(args, device) -> int:
             return read_futs.pop(path).result()
 
         for config, recs in pending.items():
+            if n_dev > 1:
+                # The files axis is the largest divisor of the device count
+                # that a block fills; the rest of the devices shard frames.
+                files_axis = max(d for d in range(1, n_dev + 1) if n_dev % d == 0 and d <= len(recs))
+                mesh = make_mesh(files_axis, n_dev // files_axis, devices)
+                mesh_desc = dict(mesh.shape)
+                print(f"mesh {mesh_desc} for {len(recs)} file(s) @ frame_len {config.frame_len}", file=sys.stderr)
+
+                def read_frames(rec, config=config):
+                    samples, sr_f = take_read(rec[0])
+                    return frame_signal(_prepare_samples(samples, sr_f, args, device), config.frame_len, config.hop)
+
+                corpus_sharded(
+                    mesh, recs, config, read_frames,
+                    save=lambda rec, out, mesh_desc=mesh_desc: save(rec[0], out, rec[1], mesh_desc),
+                    read_error=lambda rec, e: read_error(rec[0], e), bucket_frames=bucket_frames,
+                    viterbi=args.viterbi, prefetch=lambda rs: [start_read(p) for p, _sr in rs],
+                )
+                continue
             if batch_files > 1 and len(recs) > 1 and not args.resample_hz:
                 # Blocks of --batch-files recordings stacked on the host into
                 # one zero-padded (B, S) block: framing, valid-frame masking
@@ -520,8 +591,6 @@ def _serve_refusal(args) -> str | None:
                 "resample offline or use `analyze`)")
     if args.f64:
         return "serve is the float32 fast path; --f64 parity mode is offline-only (`analyze`/`corpus`)"
-    if args.data_parallel > 1:
-        return f"serve --data-parallel {args.data_parallel} over several cards is {NOT_PORTED}"
     return None
 
 
@@ -565,22 +634,26 @@ def cmd_serve(args, device) -> int:
             "rates; add --allowed-rates 44100,16000,... to close it",
             file=sys.stderr,
         )
-    server = VoxServer(
-        ServeConfig(
-            host=args.host,
-            port=args.port,
-            window_ms=args.window_ms,
-            max_batch=args.max_batch,
-            data_parallel=args.data_parallel,
-            bucket=_resolve_bucket(args),
-            pipeline_depth=args.pipeline_depth,
-            allow_param_overrides=not args.no_param_overrides,
-            allowed_rates=allowed_rates,
-            stream_chunk_frames=args.stream_chunk_frames,
-            defaults=defaults,
-            device=str(device),
+    try:
+        server = VoxServer(
+            ServeConfig(
+                host=args.host,
+                port=args.port,
+                window_ms=args.window_ms,
+                max_batch=args.max_batch,
+                data_parallel=args.data_parallel,
+                bucket=_resolve_bucket(args),
+                pipeline_depth=args.pipeline_depth,
+                allow_param_overrides=not args.no_param_overrides,
+                allowed_rates=allowed_rates,
+                stream_chunk_frames=args.stream_chunk_frames,
+                defaults=defaults,
+                device=str(device),
+            )
         )
-    )
+    except ValueError as e:  # data_parallel, max_batch: voxtpu's checks
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if not args.no_warmup:
         print("warming up (kernel build and first runs)...", file=sys.stderr, flush=True)
         if allowed_rates:
@@ -589,12 +662,6 @@ def cmd_serve(args, device) -> int:
             server.warmup(sample_rate=args.warmup_hz)
     server.serve_forever()
     return 0
-
-
-def _cuda_device_count() -> int:
-    import torch
-
-    return torch.cuda.device_count()
 
 
 def cmd_not_ported(args, device=None) -> int:
@@ -661,7 +728,9 @@ def main(argv=None) -> int:
                     help="feature file format (parquet: one row per frame)")
     sc.add_argument("--no-resume", action="store_true", help="reprocess everything")
     sc.add_argument("--sharded", action="store_true",
-                    help="shard over all devices (not yet ported: one device runs serial)")
+                    help="shard over every card: a (files, frames) mesh (one device runs serial); "
+                         "one host thread queues every card's blocks, so today this is slower than "
+                         "the default --batch-files path")
     sc.add_argument("--batch-files", type=int, default=16,
                     help="stack N recordings into one (N, S) block with one device-to-host copy "
                          "(1 disables; default 16)")
@@ -676,7 +745,9 @@ def main(argv=None) -> int:
     ss.add_argument("--max-batch", type=int, default=8,
                     help="files per device dispatch (batch axis pads to powers of two)")
     ss.add_argument("--data-parallel", type=int, default=1, metavar="N",
-                    help=f"cards on the 'files' axis; above 1 {NOT_PORTED}")
+                    help="cards on the 'files' axis: each full batch splits over them (power of two); "
+                         "one host thread queues every card's block, so today a split batch is slower "
+                         "than one dispatch")
     ss.add_argument("--no-warmup", action="store_true",
                     help="skip the kernel build and first runs of the default config at startup")
     ss.add_argument("--no-param-overrides", action="store_true",

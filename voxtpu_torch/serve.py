@@ -28,6 +28,14 @@ Request params (all optional; defaults come from the server's CLI flags):
   this batch's device work. The frame axis lands on the bucket ladder
   (`cli._bucket_target`), the batch axis on powers of two up to
   `max_batch`.
+- **Data parallelism.** With `data_parallel` N > 1 each batch of at least N
+  recordings splits into N equal row blocks on the "files" axis, one block
+  a card (`dispatch_split`): each block's copy in, launches and copy back
+  run on its own card's current stream behind its own CUDA event, and the
+  drain waits on every card's event; /stats' `device_time_s` sums them.
+  Smaller batches stay on the first card, as in voxtpu. One host thread
+  queues every block, so today a split batch takes longer than one
+  dispatch (PERF.md §2).
 - **No compiled programs.** voxtpu keeps an LRU of XLA executables, one a
   (config, shape); eager PyTorch compiles nothing per shape, so there is
   none. The kernels build once a checkout (`ops.kernels`); `warmup()` builds
@@ -44,7 +52,9 @@ Request params (all optional; defaults come from the server's CLI flags):
 All device work runs on the device's current stream: the dispatcher's and
 the stream handlers' launches interleave there. The server runs on the card
 unless `ServeConfig.device` says "cpu"; without a card it raises
-`NoCudaDevice`.
+`NoCudaDevice`. Streams and the Viterbi run on `device`; batches on the
+first `data_parallel` of `device`'s distinct cards (`dist.local_devices`),
+the server's own card first.
 """
 
 from __future__ import annotations
@@ -63,8 +73,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from voxtpu_torch.cli import NOT_PORTED, _bucket_target, build_analysis_config
+from voxtpu_torch.cli import _bucket_target, build_analysis_config
 from voxtpu_torch.device import resolve_device
+from voxtpu_torch.dist import local_devices
 from voxtpu_torch.frame import frame_signal
 from voxtpu_torch.io_wav import read_wav_bytes
 from voxtpu_torch.pipeline import (
@@ -73,7 +84,7 @@ from voxtpu_torch.pipeline import (
 )
 from voxtpu_torch.viterbi import PathConfig, pitch_path
 
-__all__ = ["ServeConfig", "VoxServer"]
+__all__ = ["ServeConfig", "VoxServer", "dispatch_split"]
 
 
 @dataclass(frozen=True)
@@ -86,7 +97,8 @@ class ServeConfig:
     max_batch: int = 8
     #: frame bucket (0 disables padding: every length is its own shape)
     bucket: int = 1024
-    #: cards on the "files" axis (power of two); above 1 not yet ported
+    #: cards on the "files" axis (power of two): each batch of at least this
+    #: many recordings splits over them
     data_parallel: int = 1
     max_body_bytes: int = 256 << 20
     #: how long a request may wait on the device queue
@@ -158,7 +170,8 @@ def _samples_for_frames(config, Fp: int) -> int:
 class _DeviceTimer:
     """Seconds of device work from construction to `stop()`: CUDA events on
     the queue of the card, so `seconds()` waits for the work and counts no
-    host time; on the CPU the host clock from construction to `seconds()`."""
+    host time; on the CPU, whose work is done when it returns, the host
+    clock from construction to `stop()`."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
@@ -166,18 +179,52 @@ class _DeviceTimer:
             self.start = torch.cuda.Event(enable_timing=True)
             self.end = torch.cuda.Event(enable_timing=True)
             self.start.record(self.stream)
-        self.t0 = time.monotonic()
+        self.t0 = self.t1 = time.monotonic()
 
     def stop(self) -> None:
         if self.stream is not None:
             self.end.record(self.stream)
+        self.t1 = time.monotonic()
 
     def seconds(self) -> float:
         """Waits for the timed work to finish."""
         if self.stream is None:
-            return time.monotonic() - self.t0
+            return self.t1 - self.t0
         self.end.synchronize()
         return self.start.elapsed_time(self.end) / 1e3
+
+
+def dispatch_split(stack: torch.Tensor, lengths: torch.Tensor, config, devices: list, rows: int):
+    """Launch one packed batch split over `devices` on the "files" axis,
+    waiting for none of them.
+
+    stack (B, S) raw samples and lengths (B,) lie on the host (pinned, for
+    cards). B splits into len(devices) equal row blocks (a B they do not
+    divide raises ValueError); block i runs
+    `pipeline._analyze_batch_padded_packed` on devices[i], and its first
+    `rows` frame rows are copied into its rows of one host buffer (pinned
+    for cards): the copy in, the launches and the copy back on that device's
+    current stream. Returns (out (B, rows, W), manifest, timers), one
+    `_DeviceTimer` a block: `out` is complete once every timer's `seconds()`
+    has returned."""
+    B = stack.shape[0]
+    if B % len(devices):
+        raise ValueError(f"batch {B} not divisible by {len(devices)} devices")
+    per = B // len(devices)
+    out, timers = None, []
+    for i, dev in enumerate(devices):
+        block = slice(i * per, (i + 1) * per)
+        timer = _DeviceTimer(dev)
+        flat, manifest = _analyze_batch_padded_packed(
+            stack[block].to(dev, non_blocking=True), lengths[block].to(dev, non_blocking=True), config
+        )
+        flat = flat[:, :rows]
+        if out is None:
+            out = torch.empty((B,) + tuple(flat.shape[1:]), dtype=flat.dtype, pin_memory=dev.type == "cuda")
+        out[block].copy_(flat, non_blocking=True)
+        timer.stop()
+        timers.append(timer)
+    return out, manifest, timers
 
 
 class _MicroBatcher:
@@ -185,10 +232,10 @@ class _MicroBatcher:
     queue, groups same-(config, Fp) items inside the gather window, and runs
     each group as one `_analyze_batch_padded_packed` dispatch."""
 
-    def __init__(self, cfg: ServeConfig, stats: "_Stats", device: torch.device):
+    def __init__(self, cfg: ServeConfig, stats: "_Stats", devices: list):
         self.cfg = cfg
         self.stats = stats
-        self.device = device
+        self.devices = devices
         self.q: queue.Queue = queue.Queue()
         self._stopping = False
         self.thread = threading.Thread(target=self._loop, daemon=True, name="voxtpu-batcher")
@@ -289,7 +336,10 @@ class _MicroBatcher:
         config, Fp, _n = key
         try:
             B = _pow2_batch(len(items), self.cfg.max_batch)
-            pin = self.device.type == "cuda"
+            # Smaller batches stay on the first card: a split would pad a lone
+            # request to data_parallel recordings (voxtpu/serve.py:547-551).
+            devices = self.devices if B >= len(self.devices) else self.devices[:1]
+            pin = devices[0].type == "cuda"
             # Raw samples, framed on the device: each request's samples span
             # exactly its F frames, so the length mask marks the frames that
             # exist. Only the tails are zeroed.
@@ -303,20 +353,12 @@ class _MicroBatcher:
                 host[i, L:] = 0.0
                 host_len[i] = L
             host[len(items) :] = 0.0
-            timer = _DeviceTimer(self.device)
-            flat, manifest = _analyze_batch_padded_packed(
-                stack.to(self.device, non_blocking=True), lengths.to(self.device, non_blocking=True), config
-            )
             # Rung-padding rows are cut before the copy, quantized to 64-frame
             # steps (voxtpu/serve.py:566-573).
             Fmaxb = min(Fp, max(64, (max(it.F for it in items) + 63) // 64 * 64))
-            if Fmaxb < Fp:
-                flat = flat[:, :Fmaxb, :]
-            out = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=pin)
-            out.copy_(flat, non_blocking=True)
-            timer.stop()
+            out, manifest, timers = dispatch_split(stack, lengths, config, devices, Fmaxb)
             # The host buffers stay referenced until the batch drains.
-            return (key, items, B, out, manifest, timer, stack, lengths)
+            return (key, items, B, out, manifest, timers, stack, lengths)
         except Exception:  # surface device failures to every waiter
             err = traceback.format_exc()
             for it in items:
@@ -326,9 +368,9 @@ class _MicroBatcher:
 
     def _drain(self, pending) -> None:
         """Wait for one in-flight batch, unpack it and release its waiters."""
-        key, items, B, out, manifest, timer = pending[:6]
+        key, items, B, out, manifest, timers = pending[:6]
         try:
-            dt = timer.seconds()  # waits for the copy back
+            dt = sum(t.seconds() for t in timers)  # waits for every card's copy back
             self.stats.record_batch(len(items), B, dt, key)
             feats = _unpack_frames(out.numpy(), manifest)
             for i, it in enumerate(items):
@@ -607,12 +649,17 @@ class VoxServer:
                 f"max_batch ({cfg.max_batch}) must be a multiple of "
                 f"data_parallel ({dp})"
             )
-        if dp > 1:
-            raise ValueError(f"data_parallel {dp}: serving over several cards is {NOT_PORTED}")
         self.device = resolve_device(cfg.device)  # NoCudaDevice without a card
+        devices = local_devices(self.device)
+        if self.device in devices:  # the server's own card leads
+            devices.remove(self.device)
+            devices.insert(0, self.device)
+        if dp > len(devices):
+            raise ValueError(f"data_parallel {dp} > {len(devices)} devices")
+        self.devices = devices[:dp]
         self.cfg = cfg
         self.stats = _Stats()
-        self.batcher = _MicroBatcher(cfg, self.stats, self.device)
+        self.batcher = _MicroBatcher(cfg, self.stats, self.devices)
         self._streams: dict = {}
         self._streams_lock = threading.Lock()
         server = self
@@ -1025,11 +1072,13 @@ class VoxServer:
             config = self._config(float(rate), dict(self.cfg.defaults))
             for B, rung in shapes:
                 S = _samples_for_frames(config, rung)
-                flat, _m = _analyze_batch_padded_packed(
-                    torch.zeros((B, S), dtype=torch.float32, device=self.device),
-                    torch.zeros((B,), dtype=torch.int64, device=self.device), config,
+                devices = self.devices if B >= len(self.devices) else self.devices[:1]
+                _out, _m, timers = dispatch_split(
+                    torch.zeros((B, S), dtype=torch.float32), torch.zeros((B,), dtype=torch.int64), config,
+                    devices, rung,
                 )
-                flat.cpu()
+                for t in timers:
+                    t.seconds()
 
     @property
     def address(self):
