@@ -10,9 +10,9 @@ It fails (nonzero exit, no result lines) without a CUDA device or outside a
 checkout. Phases, each an uncaught exception when it fails:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. build of the eight kernels from voxtpu_torch/csrc with nvcc, with the
-   compiler's register report; every instantiation of kernels A-F and P
-   must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
+2. build of the nine kernels from voxtpu_torch/csrc with nvcc, with the
+   compiler's register report; every instantiation of kernels A-F, P and
+   X3 must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
    memory a block at C = 33 and 128 in both dtypes; beside it, the build
    of tools/burg_rates.cu's rate probes (phase 10);
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
@@ -144,7 +144,28 @@ checkout. Phases, each an uncaught exception when it fails:
    `dist.launch_multiprocess_dryrun` with two ranks sharing the card over
    gloo (NCCL takes one rank a card). It times the 1x4 exact run and
    `analyze` of the same recording, each beside its launches. Every kernel
-   must have run in the phase.
+   must have run in the phase;
+13. bench (`check_bench`): `voxtpu_torch.bench.run()` in process at full
+   size (BENCH_44K over the 126 tiles, bench.py's 9 + 8 x 9 timed runs):
+   bench.py's keys, finite and positive; one checksummed run launches E,
+   G, A-D and P once and F and X3 never, and the whole call each of them
+   once a run; the host syncs of one run before its fetch (under
+   `set_sync_debug_mode("warn")`); then `python -m voxtpu_torch bench` as a
+   new process: exit 0 and one JSON line of bench.py's keys, printed
+   beside phase 10's bench row;
+14. the autocorrelation backends at the bench shapes (15,369 windowed
+   frames of 4096, float32; `check_autocorr_backends`):
+   `power_and_autocorrelate(backend="ct_fused_x3")` counted (X3 once,
+   nothing else); X3 against its plain version and X3, the "ct" chain and
+   E against the float64 FFT on the card, per frame (X3_TOL; E at
+   CT_FUSED_F32_TOL); X3 against its plain version at every n its gate
+   admits (4 frames each); float64 into X3 raises ValueError, directly and
+   through the backend name; the times (CUDA events, mean of 5) of X3, E,
+   the "ct" chain and cuFFT rfft-power-irfft, X3's bound (`x3_bound`),
+   registers and spills;
+15. the examples (`check_examples`): examples/torch/pitch_detection.py,
+   formant_extraction.py and serving_client.py with `--device cuda`, each
+   run counted, checked as tests/test_torch_examples.py checks them.
 
 Each phase prints the seconds it took.
 
@@ -192,11 +213,19 @@ BUDGETS = {"f0": 0.7, "f0_strength": 1e-2, "formant_freqs": 2.5, "mfcc": 1e-4}
 # the gate's largest, 16384.
 CT_FUSED_F32_TOL = 4e-6
 
-# Peak rates of one H100 SXM at 700 W: HBM3 bytes/s, and float32 and float64
-# FLOP/s outside the tensor cores (NVIDIA's H100 data sheet).
+# Kernel X3 (three bfloat16 passes) per frame, relative to the frame's
+# largest value, against its plain version and against the float64 FFT:
+# tests/test_autocorr.py:172-190's 2e-5 for voxtpu's x3 (measured up to
+# 7.7e-6 on the card); the "ct" chain against the float64 FFT the same.
+X3_TOL = 2e-5
+
+# Peak rates of one H100 SXM at 700 W: HBM3 bytes/s, float32 and float64
+# FLOP/s outside the tensor cores, and dense bfloat16 FLOP/s on them
+# (NVIDIA's H100 data sheet).
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 F64_OPS_S = 34e12
+BF16_TC_OPS_S = 989e12
 # The SM clock those peaks assume (67e12 = 132 SMs x 256 float32 operations
 # a clock x 1.98 GHz). Kernel B's bound with its float -> double conversions
 # takes the conversions a clock an SM that tools/burg_rates.cu's probe
@@ -227,7 +256,7 @@ BURG_LARGE = (
 # pre-pass in each dtype, and the chain in each dtype with and without its
 # clock probe.
 STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4,
-                 "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4}
+                 "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
 # coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
 # own limit of order 127 (voxtpu/ops/burg_pallas.py:87-88).
@@ -245,6 +274,11 @@ KERNELS = {
     # P has no Pallas kernel: voxtpu's polish is jnp that XLA fuses.
     "polish": ("voxtpu_torch/csrc/polish.cu", "voxtpu/roots.py:370", "cli"),
 }
+# Kernel X3: opt-in (backend="ct_fused_x3"), on no analysis path; phase 14
+# runs it through `autocorr.power_and_autocorrelate` at the bench shapes.
+# Its launch count stays 0 on every other counted run.
+X3 = ("voxtpu_torch/csrc/ct_x3.cu", "voxtpu/ops/ct_fused_pallas.py:130")
+OPT_IN = frozenset(["ct_x3"])
 # Each wrapper's device kernel, as torch.profiler names it (D's wrapper
 # launches formant_scan_speculate and, after it, formant_scan_repair; F's
 # launches viterbi_costs and, after it, viterbi_chain).
@@ -2456,6 +2490,200 @@ def check_sharded(sig32, recs: list, lengths: list, card: str, checks: Checks, r
     return {"launches": launches, "total": total, "numbers": numbers}
 
 
+def x3_bound(x, nfft: int) -> tuple[float, str]:
+    """Kernel X3's bound at (F, n) frames x: its products on the tensor
+    cores, three bfloat16 passes each, at the dense bfloat16 rate (stage 1,
+    two (N1 x rows) @ (rows x 128); stage 3, four (N1 x 128) @ (128 x 128);
+    the inverse, two (N1 x 128) @ (128 x 128) and two (rows x N1) @
+    (N1 x 128); rows = n / 128, N1 = nfft / 128); it reads x once and writes
+    (F, n/2 + 1) + (F, n) float32 values. The elementwise twiddles, powers
+    and the split (about 0.3% of the operations) are left out."""
+    F, n = x.shape
+    N1, rows = nfft // 128, n // 128
+    macs = 2 * N1 * rows * 128 + 4 * N1 * 128 * 128 + 2 * N1 * 128 * 128 + 2 * rows * N1 * 128
+    return bound(4 * (F * n + F * (n // 2 + 1) + F * n), F * 3 * 2 * macs / BF16_TC_OPS_S)
+
+
+def ct_chain(x, nfft: int):
+    """The "ct" backend's chain (ops/ct_fft.py, cuBLAS products): the half
+    power and the lags of (F, n) frames."""
+    from voxtpu_torch.ops import ct_fft
+
+    p = ct_fft.ct_power(x, nfft)
+    return ct_fft.ct_half_power(p, x.shape[-1] // 2 + 1), ct_fft.ct_autocorr(p, x.shape[-1])
+
+
+def f64_transform(x, nfft: int):
+    """The float64 FFT's (half, lags) of x on the card: the reference the
+    matmul backends are held to."""
+    import torch
+
+    spec = torch.fft.rfft(x.double(), n=nfft, dim=-1)
+    power = spec.real.square() + spec.imag.square()
+    return power[:, ::2], torch.fft.irfft(power, n=nfft, dim=-1)[:, : x.shape[-1]]
+
+
+def close_per_frame(name: str, got, want, tol: float, checks: Checks) -> float:
+    """got within tol of want, per frame, relative to the frame's largest
+    |want|; returns the largest such error."""
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    checks.close(name, got.double() / scale, want.double() / scale, 0.0, tol)
+    return float(((got.double() - want.double()) / scale).abs().max())
+
+
+def check_bench(card: str, checks: Checks, run_counted, expect_launches, dev) -> dict:
+    """Phase 13: `voxtpu_torch.bench` in process at full size, each of its
+    runs' launches, its host syncs; then `python -m voxtpu_torch bench` as
+    a new process, its one JSON line."""
+    import torch
+
+    from voxtpu_torch import bench
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.io_wav import read_wav
+    from voxtpu_torch.pipeline import BENCH_44K
+
+    samples = np.asarray(read_wav(str(bench.FIXTURE)).samples, np.float32)
+    frames = frame_signal(torch.as_tensor(np.tile(samples, bench.TILES), device=dev), BENCH_44K.frame_len,
+                          BENCH_44K.hop)
+    bench._checksum(frames)
+    _, one = run_counted("bench: one checksummed run", lambda: bench._checksum(frames))
+    expect_launches("in one bench run", one, viterbi=0)
+    del frames
+    res, counts = run_counted("bench: voxtpu_torch.bench.run()", lambda: bench.run(dev))
+    runs = 2 + bench.ITERS + bench.CHAIN * (bench.ITERS + 1)  # warm, syncs, wall; chained warm and timed
+    expect_launches(f"in bench.run() ({runs} runs)", counts, viterbi=0, **{
+        name: runs for name in ("ct_fused", "pitch_pre", "refine", "burg", "find_roots", "formant_scan", "polish")})
+    checks.true("bench.run(): bench.py's keys, finite and positive", all(
+        k in res for k in bench.KEYS) and all(math.isfinite(res[k]) and res[k] > 0 for k in bench.KEYS[4:]),
+        str({k: res[k] for k in bench.KEYS}))
+    print(f"bench in process: {json.dumps({k: res[k] for k in bench.KEYS})}; {res['frames']} frames, "
+          f"{res['audio_seconds']:.3f} audio-s, {res['host_syncs']} host sync(s) in one run before its fetch "
+          f"(at {res['host_sync_sites']}) [{card}]")
+    cmd = [sys.executable, "-m", "voxtpu_torch", "bench", *([] if dev.type == "cuda" else ["--device", str(dev)])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"{' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s (process start, CUDA init, kernel load and "
+          f"the runs); stdout lines {len(lines)}; stderr: {proc.stderr.strip()[-800:]}")
+    line = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    checks.true("python -m voxtpu_torch bench: exit 0, one JSON line with bench.py's keys",
+                proc.returncode == 0 and len(lines) == 1 and tuple(line) == bench.KEYS, f"({proc.returncode})")
+    return {"in_process": {k: res[k] for k in (*bench.KEYS, "frames", "audio_seconds", "host_syncs",
+                                                "host_sync_sites")},
+            "command": line, "command_s": wall, "launches": counts}
+
+
+def check_autocorr_backends(x, nfft: int, build_log: str, card: str, checks: Checks, run_counted, dev) -> dict:
+    """Phase 14: kernel X3, the "ct" chain and kernel E at the bench shapes
+    (x: the bench path's (F, 4096) windowed float32 frames): X3 through
+    `power_and_autocorrelate(backend="ct_fused_x3")`, counted; X3 against
+    its plain version and all three against the float64 FFT; X3 at every n
+    its gate admits; float64 into X3 raises; times, X3's bound, registers
+    and spills. Returns X3's row of the kernels line."""
+    import torch
+
+    from voxtpu_torch import autocorr
+    from voxtpu_torch.ops import ct_fused, ct_x3
+
+    (half, ac), counts = run_counted("power_and_autocorrelate(backend='ct_fused_x3'), bench shapes",
+                                     lambda: autocorr.power_and_autocorrelate(x, quirk=False, backend="ct_fused_x3"))
+    checks.true("ct_fused_x3 at the bench shapes: X3 launched once, nothing else",
+                counts["ct_x3"] == 1 and sum(v for k, v in counts.items() if k != "ct_x3") == 0, str(counts))
+    hp, ap = ct_x3.ct_x3_power_ac_plain(x, nfft)
+    rel = max(close_per_frame("X3 half vs plain / frame max [bench]", half, hp, X3_TOL, checks),
+              close_per_frame("X3 ac vs plain / frame max [bench]", ac, ap, X3_TOL, checks))
+    err = max(float((half - hp).abs().max()), float((ac - ap).abs().max()))
+    del hp, ap
+    h64, a64 = f64_transform(x, nfft)
+    errs64 = {"ct_x3": max(close_per_frame("X3 half vs float64 fft [bench]", half, h64, X3_TOL, checks),
+                           close_per_frame("X3 ac vs float64 fft [bench]", ac, a64, X3_TOL, checks))}
+    hc, acc = ct_chain(x, nfft)
+    errs64["ct"] = max(close_per_frame("ct half vs float64 fft [bench]", hc, h64, X3_TOL, checks),
+                       close_per_frame("ct ac vs float64 fft [bench]", acc, a64, X3_TOL, checks))
+    he, ae = ct_fused.ct_fused_power_ac(x, nfft)
+    errs64["ct_fused"] = max(close_per_frame("E half vs float64 fft [bench]", he, h64, CT_FUSED_F32_TOL, checks),
+                             close_per_frame("E ac vs float64 fft [bench]", ae, a64, CT_FUSED_F32_TOL, checks))
+    del h64, a64, hc, acc, he, ae, half, ac
+    gen = torch.Generator(device=dev).manual_seed(0)
+    admitted = [n for n in range(128, 24000, 128) if ct_x3.ct_x3_supported(n, 2 * n)]
+    gate_err = 0.0
+    for n in admitted:
+        xs = torch.randn((4, n), generator=gen, device=dev)
+        hk, ak = ct_x3.ct_x3_power_ac(xs, 2 * n)
+        hp, ap = ct_x3.ct_x3_power_ac_plain(xs, 2 * n)
+        for k, p in ((hk, hp), (ak, ap)):
+            scale = p.abs().amax(dim=-1, keepdim=True)
+            gate_err = max(gate_err, float(((k - p) / scale).abs().max()))
+    checks.true(f"X3 vs plain at every n its gate admits ({len(admitted)}: {admitted[0]} .. {admitted[-1]}, 4 frames "
+                f"each), per frame within {X3_TOL}", gate_err <= X3_TOL and admitted[-1] == 20608,
+                f"(largest {gate_err:.3e})")
+    raised = []
+    for fn in (lambda: ct_x3.ct_x3_power_ac(x[:2].double(), nfft),
+               lambda: autocorr.power_and_autocorrelate(x[:2].double(), backend="ct_fused_x3")):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append("float32 only" in str(e))
+    checks.true("float64 into X3 on the card raises ValueError", raised == [True, True], str(raised))
+    ms = {"ct_x3": event_ms(lambda: ct_x3.ct_x3_power_ac(x, nfft)),
+          "ct_fused": event_ms(lambda: ct_fused.ct_fused_power_ac(x, nfft)),
+          "ct": event_ms(lambda: ct_chain(x, nfft)),
+          "cufft": event_ms(lambda: cufft_power_ac(x, nfft)),
+          "plain": event_ms(lambda: ct_x3.ct_x3_power_ac_plain(x, nfft), runs=3)}
+    bound_ms, bound_by = x3_bound(x, nfft)
+    regs = kernel_registers(build_log, "ct_x3_kernel")
+    spills = stack_frames(build_log, "ct_x3_kernel")
+    print(f"  ct_x3, bench shapes ({x.shape[0]} frames of {x.shape[1]}): kernel {ms['ct_x3']:.3f} ms, plain "
+          f"{ms['plain']:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}; E {ms['ct_fused']:.3f} ms, the ct chain "
+          f"(cuBLAS) {ms['ct']:.3f} ms, cuFFT rfft-power-irfft {ms['cufft']:.3f} ms; registers "
+          f"{sorted(regs.values())}, stack/spill {sorted(spills.values())}; vs float64 fft {errs64} [{card}]")
+    return {
+        "name": "ct_x3", "route": "cuda", "source": X3[0], "replaces": X3[1], "launches": counts["ct_x3"],
+        "max_abs_err": err, "max_rel_err_per_frame": rel, "ms": ms["ct_x3"], "plain_ms": ms["plain"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": ms["ct"], "path": "autocorr_x3", "frames": x.shape[0], "cufft_ms": ms["cufft"],
+        "ct_fused_ms": ms["ct_fused"], "err_vs_f64_fft": errs64, "gate_ns": len(admitted), "gate_err": gate_err,
+        "registers": regs, "stack_spill": spills, "launches_by_path": {"autocorr_x3": counts["ct_x3"]},
+    }
+
+
+def check_examples(checks: Checks, run_counted, device: str = "cuda") -> dict:
+    """Phase 15: examples/torch/* on the card (`--device cuda`), checked as
+    tests/test_torch_examples.py checks them on the CPU."""
+    import importlib.util
+    import io
+
+    outs, launches = {}, {}
+    for name in ("pitch_detection", "formant_extraction", "serving_client"):
+        spec = importlib.util.spec_from_file_location(f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, launches[name] = run_counted(f"examples/torch/{name}.py --device {device}",
+                                             lambda: mod.main(["--device", device]))
+        outs[name] = buf.getvalue()
+        print(f"examples/torch/{name}.py: {time.perf_counter() - t0:.1f} s, {len(outs[name].splitlines())} lines; "
+              f"first: {outs[name].splitlines()[:1]}")
+        checks.true(f"examples/torch/{name}.py returns 0 or None", rc in (0, None), f"({rc})")
+    f0 = [float(line.split("=")[1].split("Hz")[0]) for line in outs["pitch_detection"].splitlines()
+          if line.startswith("frame")]
+    checks.true("pitch_detection: frame 0's f0 within 0.5 Hz of 150", bool(f0) and abs(f0[0] - 150.0) < 0.5, str(f0))
+    rows = [line.split() for line in outs["formant_extraction"].splitlines() if line and line[0].isdigit()]
+    f1 = np.asarray([float(r[1]) for r in rows])
+    voiced = f1[f1 > 0]
+    checks.true("formant_extraction: over 50 rows, voiced F1 in (50, 5001) Hz", len(rows) > 50 and voiced.size > 0
+                and bool(np.all((voiced > 50.0) & (voiced < 5001.0))), f"({len(rows)} rows)")
+    out = outs["serving_client"]
+    track = [float(v) for v in out.split("f0 track:")[1].splitlines()[0].split()] if "f0 track:" in out else []
+    checks.true("serving_client: an f0 track in 60-500 Hz, stream and stats lines",
+                bool([v for v in track if v > 0]) and all(60 <= v <= 500 for v in track if v > 0)
+                and "server stats: " in out and "viterbi f0 track:" in out, str(track[:8]))
+    return {"launches": launches, "pitch_f0": f0}
+
+
 def main() -> None:
     if not (ROOT / "voxtpu_torch" / "csrc").is_dir() or not FIXTURE.is_file():
         raise SystemExit("chip_smoke.py runs from the root of a voxtpu checkout")
@@ -2466,7 +2694,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from voxtpu_torch.frame import frame_signal, num_frames
     from voxtpu_torch.io_wav import read_wav
-    from voxtpu_torch.ops import burg, ct_fused, find_roots, formant_scan, kernels, pitch_pre, polish, refine, viterbi
+    from voxtpu_torch.ops import (
+        burg, ct_fused, ct_x3, find_roots, formant_scan, kernels, pitch_pre, polish, refine, viterbi,
+    )
     from voxtpu_torch.pipeline import (
         BENCH_44K, CLI_DEFAULT_44K, FLAGSHIP_44K, analyze, analyze_batch_padded, analyze_long,
     )
@@ -2475,6 +2705,7 @@ def main() -> None:
         "refine": refine.refine, "burg": burg.burg, "find_roots": find_roots.find_roots,
         "formant_scan": formant_scan.formant_scan, "ct_fused": ct_fused.ct_fused_power_ac,
         "viterbi": viterbi.viterbi_path, "pitch_pre": pitch_pre.pitch_pre, "polish": polish.polish_roots,
+        "ct_x3": ct_x3.ct_x3_power_ac,
     }
     checks = Checks()
     t_start = t_phase = time.perf_counter()
@@ -2499,10 +2730,10 @@ def main() -> None:
         return out, counts
 
     def expect_launches(where: str, counts: dict, **zero_or_more) -> None:
-        """Every kernel launched exactly once in a counted run, except the
-        counts named in zero_or_more."""
+        """Every kernel launched exactly once in a counted run (the opt-in
+        X3 never), except the counts named in zero_or_more."""
         for name in wrappers:
-            count, want = counts[name], zero_or_more.get(name, 1)
+            count, want = counts[name], zero_or_more.get(name, 0 if name in OPT_IN else 1)
             checks.true(f"{name} launched {want} time(s) {where}", count == want, f"({count})")
 
     # --- 1. the card
@@ -3084,6 +3315,21 @@ def main() -> None:
     for row in rows:
         row["launches_by_path"]["sharded"] = sharded["total"][row["name"]]
     phase_took("phase 12, sharded")
+
+    # --- 13. bench: voxtpu_torch.bench in process, then as a command
+    bench_numbers = check_bench(card, checks, run_counted, expect_launches, dev)
+    cmd_line = bench_numbers["command"]
+    print(f"python -m voxtpu_torch bench: {json.dumps(cmd_line)}; beside phase 10's bench path row: "
+          f"{e2e['bench']:.2f} ms end to end for {audio_s:.1f} s of audio [{card}]")
+    phase_took("phase 13, bench")
+
+    # --- 14. the autocorrelation backends at the bench shapes: X3, "ct", E
+    rows.append(check_autocorr_backends(xe, nfft, build_log, card, checks, run_counted, dev))
+    phase_took("phase 14, the autocorrelation backends")
+
+    # --- 15. the examples on the card
+    example_numbers = check_examples(checks, run_counted)
+    phase_took("phase 15, the examples")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
 
@@ -3096,7 +3342,8 @@ def main() -> None:
                       "frames": {"cli": F, "bench": FB, "corpus": sum(cframes), "flagship": FF},
                       "corpus_command_s": {"first": corpus_wall, "second": corpus_warm},
                       "serve": {**serve["numbers"], "launches": serve["launches"]},
-                      "sharded": {**sharded["numbers"], "launches": sharded["launches"]}, "card": card}))
+                      "sharded": {**sharded["numbers"], "launches": sharded["launches"]},
+                      "bench": bench_numbers, "examples": example_numbers, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -67,9 +67,15 @@ def test_port_imports_no_jax_and_no_voxtpu():
         "import importlib, pkgutil, sys, voxtpu_torch\n"
         "for m in pkgutil.walk_packages(voxtpu_torch.__path__, 'voxtpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import glob, importlib.util\n"
+        "for path in sorted(glob.glob('examples/torch/*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('ex_' + path.split('/')[-1][:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'voxtpu'))\n"
         "assert not bad, bad\n"
-        "assert {'voxtpu_torch.dist', 'voxtpu_torch._dist_worker'} <= set(sys.modules)\n"
+        "assert {'voxtpu_torch.dist', 'voxtpu_torch._dist_worker', 'voxtpu_torch.bench', 'voxtpu_torch.serve',\n"
+        "        'voxtpu_torch.ops.ct_x3', 'voxtpu_torch.ops.ct_fft'} <= set(sys.modules)\n"
+        "assert len(glob.glob('examples/torch/*.py')) == 3\n"
         "print(len([m for m in sys.modules if m.startswith('voxtpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -256,15 +262,20 @@ def test_power_and_autocorrelate_matches_jax(n):
 
 def test_autocorr_other_backends_not_ported():
     """voxtpu's XLA matmul chain ("ct") and its 3-pass bf16 variant
-    ("ct_fused_x3") are not ported and raise; "ct_fused" (kernel E) runs and
-    matches voxtpu's fused kernel (tests/test_torch_ct_fused.py)."""
-    x = torch.zeros((1, 256))
-    for backend in ("ct", "ct_fused_x3"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            autocorr.autocorrelate(x, backend=backend)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            autocorr.power_and_autocorrelate(x, backend=backend)
+    ("ct_fused_x3", kernel X3's plain version on the CPU) run and match
+    voxtpu's (tests/test_torch_ct.py holds them closer); "ct_fused" (kernel
+    E) runs and matches voxtpu's fused kernel (tests/test_torch_ct_fused.py)."""
     xr = np.random.default_rng(3).standard_normal((2, 256))
+    for backend, jax_backend, tol in (("ct", "ct", 1e-9), ("ct_fused_x3", "ct_fused_x3_interpret", 1e-5)):
+        got = autocorr.autocorrelate(torch.as_tensor(xr), backend=backend)
+        want = jac.autocorrelate(jnp.asarray(xr), backend=jax_backend)
+        scale = float(np.abs(np.asarray(want)).max())
+        np.testing.assert_allclose(_np(got) / scale, np.asarray(want) / scale, rtol=0, atol=tol)
+        got = autocorr.power_and_autocorrelate(torch.as_tensor(xr), backend=backend)
+        want = jac.power_and_autocorrelate(jnp.asarray(xr), backend=jax_backend)
+        for g, w in zip(got, want):
+            scale = float(np.abs(np.asarray(w)).max())
+            np.testing.assert_allclose(_np(g) / scale, np.asarray(w) / scale, rtol=0, atol=tol)
     got = autocorr.power_and_autocorrelate(torch.as_tensor(xr), backend="ct_fused")
     want = jac.power_and_autocorrelate(jnp.asarray(xr), backend="ct_fused_interpret")
     np.testing.assert_allclose(_np(got[1]), np.asarray(want[1]), rtol=1e-9, atol=1e-9)

@@ -377,19 +377,24 @@ def test_cli_rejects_feature_typo(capsys):
     ["serve", "--resample-hz", "16000"], ["serve", "--f64"], ["bench"],
     ["serve", "--data-parallel", "2", "--device", "cpu"],
 ])
-def test_serve_and_bench_not_yet_ported(argv, capsys):
-    """`bench` is not ported; `serve` refuses --resample-hz and --f64 with
-    voxtpu's messages, card or not, and --data-parallel above the device
-    count (the CPU is one device). All exit 2."""
+def test_serve_and_bench_not_yet_ported(argv, capsys, monkeypatch):
+    """`serve` refuses --resample-hz and --f64 with voxtpu's messages, card
+    or not, and --data-parallel above the device count (the CPU is one
+    device): exit 2. `bench` is ported (tests/test_torch_bench.py): without
+    a card it prints the NoCudaDevice error and exits 1, as every command
+    does, and no longer 2."""
+    if argv == ["bench"]:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        assert tcli.main(argv) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+        return
     assert tcli.main(argv) == 2
     err = capsys.readouterr().err
     if argv[1:2] in (["--resample-hz"], ["--f64"]):
         assert jcli.main(argv) == 2
         assert err == capsys.readouterr().err
-    elif argv[1:2] == ["--data-parallel"]:
-        assert "data_parallel 2 > 1 devices" in err
     else:
-        assert "not yet ported" in err
+        assert "data_parallel 2 > 1 devices" in err
 
 
 def test_sharded_mesh_takes_every_card(monkeypatch):

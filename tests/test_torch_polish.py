@@ -440,10 +440,13 @@ _KINDS = {"const void*": "p", "void*": "p", "int": "i", "double": "d"}
 
 @pytest.mark.parametrize("symbol", sorted(kernels._SIGNATURES))
 def test_launcher_signature_mirrors_the_cuda_source(symbol):
-    """Both exported instantiations take the argument kinds that
-    `kernels.library()` binds, then the stream."""
+    """Every exported instantiation (both dtypes, or float32 alone where
+    `kernels.suffixes` says so) takes the argument kinds that
+    `kernels.library()` binds, then the stream; no other is exported."""
     sources = "".join(open(os.path.join(CSRC, f)).read() for f in sorted(os.listdir(CSRC)) if f.endswith(".cu"))
-    for suffix in ("f32", "f64"):
+    exported = set(re.findall(rf"VT_EXPORT int {symbol}_(f\d\d)\(", sources))
+    assert exported == set(kernels.suffixes(symbol))
+    for suffix in kernels.suffixes(symbol):
         m = re.search(rf"VT_EXPORT int {symbol}_{suffix}\(([^)]*)\)", sources)
         assert m, f"{symbol}_{suffix} not exported"
         params = [re.sub(r"\s*\w+$", "", p.strip()) for p in m.group(1).split(",")]

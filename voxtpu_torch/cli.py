@@ -1,4 +1,4 @@
-"""The command line: `python -m voxtpu_torch analyze|corpus|serve`.
+"""The command line: `python -m voxtpu_torch analyze|corpus|serve|bench`.
 
 Port of voxtpu.cli. `analyze` writes one recording's features as gnuplot
 columns, an .npz or a .parquet file, or a plot; `corpus` analyses many
@@ -6,14 +6,14 @@ files into a feature directory with a resume manifest, in blocks of
 `--batch-files` recordings (one packed program and one device-to-host
 copy a block) or one file at a time, or with `--sharded` over a
 (files, frames) mesh of every card (`corpus_sharded`, voxtpu_torch.dist);
-`serve` runs the HTTP daemon (voxtpu_torch.serve).
+`serve` runs the HTTP daemon (voxtpu_torch.serve); `bench` runs the
+throughput benchmark (voxtpu_torch.bench) and prints its JSON line.
 
 Work runs on the CUDA card. `--device cpu` runs on the CPU instead; without
 a card and without it, the command prints the `NoCudaDevice` error and
 exits 1 (`voxtpu_torch.device`). `--f64` is float64 on the card: the
 kernels take double.
 
-Not ported yet (ROADMAP.md §1): `bench` parses its flags and exits 2.
 voxtpu's `_setup_compile_cache` has no counterpart: PyTorch compiles
 nothing per shape, and the kernels' build is cached by
 `voxtpu_torch.ops.kernels`.
@@ -34,7 +34,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-NOT_PORTED = "not yet ported to voxtpu_torch (ROADMAP.md §1)"
 # What reading a bad or missing WAV raises (both readers).
 READ_ERRORS = (OSError, ValueError, IndexError, struct.error)
 
@@ -664,9 +663,11 @@ def cmd_serve(args, device) -> int:
     return 0
 
 
-def cmd_not_ported(args, device=None) -> int:
-    print(f"error: {args.cmd} is {NOT_PORTED}", file=sys.stderr)
-    return 2
+def cmd_bench(args, device) -> int:
+    from voxtpu_torch import bench
+
+    bench.main(device)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -764,8 +765,10 @@ def main(argv=None) -> int:
     common(ss)
     ss.set_defaults(fn=cmd_serve)
 
-    sb = sub.add_parser("bench", help=f"run the throughput benchmark ({NOT_PORTED})")
-    sb.set_defaults(fn=cmd_not_ported)
+    sb = sub.add_parser("bench", help="run the throughput benchmark: one JSON line, bench.py's keys")
+    sb.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda; 'cpu' runs on the CPU)")
+    sb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     if hasattr(args, "features"):
@@ -774,8 +777,6 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-    if args.fn is cmd_not_ported:
-        return cmd_not_ported(args)
     if args.fn is cmd_serve and (why := _serve_refusal(args)):
         print(f"error: {why}", file=sys.stderr)
         return 2

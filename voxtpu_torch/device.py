@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["NoCudaDevice", "resolve_device", "as_input", "constant"]
+__all__ = ["NoCudaDevice", "resolve_device", "as_input", "constant", "pin_fp32_matmul"]
 
 
 class NoCudaDevice(RuntimeError):
@@ -40,6 +40,14 @@ def as_input(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(resolve_device(device))
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def pin_fp32_matmul() -> None:
+    """Float32 products in full float32, never TF32, for cuBLAS and cuDNN:
+    TF32 keeps about three decimal digits. Every module with float32
+    matmuls calls it before its products (mfcc, the "ct" backend)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @functools.lru_cache(maxsize=256)

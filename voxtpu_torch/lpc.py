@@ -13,7 +13,26 @@ import torch
 
 from voxtpu_torch.ops import burg as _burg
 
-__all__ = ["levinson", "burg"]
+__all__ = ["levinson", "burg", "LPCSolver"]
+
+
+class LPCSolver:
+    """Order-carrying wrapper over `levinson`, mirroring the reference's
+    `LPCSolver` (spectrum.rs:14-48), whose purpose there is a pre-carved
+    workspace; PyTorch allocates its own buffers, so this keeps the order
+    and the last solution, as voxtpu's does."""
+
+    def __init__(self, n_coeffs: int):
+        self.n_coeffs = int(n_coeffs)
+        self._lpc = None
+
+    def solve(self, ac: torch.Tensor) -> None:
+        self._lpc = levinson(ac, self.n_coeffs)
+
+    def lpc(self) -> torch.Tensor:
+        if self._lpc is None:
+            raise RuntimeError("call solve() first")
+        return self._lpc
 
 
 def levinson(ac: torch.Tensor, n_coeffs: int) -> torch.Tensor:

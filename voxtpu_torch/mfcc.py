@@ -10,7 +10,8 @@ with factor 2. exact=False gives a corrected textbook filterbank.
 The filterbank and DCT matmuls must run in true float32 on the card: TF32
 keeps about three decimal digits and costs ~1e-2 in the cepstra, the GPU
 analog of voxtpu's HIGHEST-precision lesson (voxtpu/mfcc.py:158-162).
-`_pin_fp32_matmul` turns TF32 off for cuBLAS and cuDNN before each product.
+`device.pin_fp32_matmul` turns TF32 off for cuBLAS and cuDNN before each
+product.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from voxtpu_torch.device import constant
+from voxtpu_torch.device import constant, pin_fp32_matmul
 
 __all__ = ["hz_to_mel", "mel_to_hz", "dct", "dct_matrix", "mel_banks", "mfcc"]
 
@@ -36,12 +37,6 @@ def mel_to_hz(mel):
     return 700.0 * (np.exp(np.asarray(mel) / 1125.0) - 1.0)
 
 
-def _pin_fp32_matmul() -> None:
-    """Float32 products in full float32, never TF32 (see module docstring)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 @functools.lru_cache(maxsize=32)
 def dct_matrix(n: int) -> np.ndarray:
     """Unnormalized DCT-II matrix: out[k] = 2 * sum_n s[n] cos(pi k (2n+1) / 2N)."""
@@ -52,7 +47,7 @@ def dct_matrix(n: int) -> np.ndarray:
 
 def dct(x: torch.Tensor) -> torch.Tensor:
     """DCT-II along the last axis (matmul form, true fp32 on the card)."""
-    _pin_fp32_matmul()
+    pin_fp32_matmul()
     mat = constant(dct_matrix, x.shape[-1], dtype=x.dtype, device=x.device)
     return torch.matmul(x, mat.T)
 
@@ -136,7 +131,7 @@ def mfcc(
     else:
         half_pow = half_power
     half_mag = torch.sqrt(half_pow)
-    _pin_fp32_matmul()
+    pin_fp32_matmul()
     energies = torch.matmul(half_pow, wp) + torch.matmul(half_mag, wm)
 
     if exact:

@@ -29,7 +29,7 @@ import torch
 
 __all__ = [
     "KernelBuildError", "KernelLaunchError", "find_nvcc", "library_path", "build",
-    "library", "on_cpu", "launch",
+    "library", "on_cpu", "launch", "suffixes",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -55,7 +55,10 @@ _SIGNATURES = {
     "vt_viterbi": "ppppppppiiiiidd",
     "vt_pitch_pre": "pppppiiiddd",
     "vt_polish": "ppppppiiid",
+    "vt_ct_x3": "pppppii",
 }
+# The launchers built for float32 only (the rest take both dtypes).
+_FLOAT32_ONLY = frozenset(["vt_ct_x3"])
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # Held around the first build and load. `functools.cache` does not stop two
@@ -143,13 +146,18 @@ def _load() -> ctypes.CDLL:
         build()
     lib = ctypes.CDLL(str(path))
     for name, kinds in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
+        for suffix in suffixes(name):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     lib.vt_error_string.argtypes = [ctypes.c_int]
     lib.vt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def suffixes(symbol: str) -> tuple[str, ...]:
+    """The dtype suffixes `symbol` is exported with."""
+    return ("f32",) if symbol in _FLOAT32_ONLY else tuple(_SUFFIX.values())
 
 
 def library() -> ctypes.CDLL:
@@ -179,8 +187,8 @@ def launch(symbol: str, dtype: torch.dtype, *args) -> None:
     """Launch `symbol` for `dtype` on the current stream of the device of
     the first tensor argument. Tensors must be contiguous; their data
     pointers are passed, other arguments as they are."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{symbol}: kernels take float32 or float64, got {dtype}")
+    if dtype not in _SUFFIX or _SUFFIX[dtype] not in suffixes(symbol):
+        raise TypeError(f"{symbol}: no kernel for {dtype} (it takes {', '.join(suffixes(symbol))})")
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     for t in tensors:
         if not t.is_contiguous():

@@ -21,7 +21,7 @@ from voxtpu_torch.cplx import C, cadd, cdiv, cmul, cneg, cnorm, csqrt, csub
 from voxtpu_torch.ops import find_roots as _find_roots
 from voxtpu_torch.ops import polish as _polish
 
-__all__ = ["degree", "off_low", "laguerre", "find_roots", "polish_roots"]
+__all__ = ["degree", "off_low", "laguerre", "find_roots", "polish_roots", "div_polynomial"]
 
 
 def degree(c: C) -> torch.Tensor:
@@ -132,3 +132,25 @@ def polish_roots(c: C, roots: C, iters: int = 2, max_step: float = 0.5) -> C:
     re, im = _polish.polish_roots(*(t.reshape(-1, N) for t in (c.re, c.im, roots.re, roots.im)),
                                   iters=iters, max_step=max_step)
     return C(re.reshape(batch + (N,)), im.reshape(batch + (N,)))
+
+
+def div_polynomial(c: C, z: C) -> tuple[C, C]:
+    """Synthetic division of (..., N) pairs by the monic linear factor
+    (x + z): the reference's `div_polynomial(self, other)`
+    (polynomial.rs:155-204, `other` the divisor's constant).
+
+    Returns (quotient, remainder): the quotient with its top coefficient
+    zeroed, as the in-place version leaves it (polynomial.rs:174-181), and
+    the remainder p(-z) at index 0 of an otherwise zero (..., N) polynomial.
+    """
+    batch = c.re.shape[:-1]
+    # _deflate divides by (x - root): dividing by (x + z) means root = -z.
+    root = cneg(C(torch.as_tensor(z.re, dtype=c.re.dtype, device=c.re.device).expand(batch),
+                  torch.as_tensor(z.im, dtype=c.im.dtype, device=c.im.device).expand(batch)))
+    q = _deflate(c, root, torch.ones(batch, dtype=torch.bool, device=c.re.device))
+    N = c.re.shape[-1]
+    rem = C(c.re[..., N - 1], c.im[..., N - 1])
+    for j in range(N - 2, -1, -1):
+        rem = cadd(cmul(rem, root), C(c.re[..., j], c.im[..., j]))
+    at0 = torch.arange(N, device=c.re.device) == 0
+    return q, C(torch.where(at0, rem.re[..., None], 0.0), torch.where(at0, rem.im[..., None], 0.0))

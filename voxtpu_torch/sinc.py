@@ -20,7 +20,7 @@ import torch
 
 from voxtpu_torch.ops.refine import refine
 
-__all__ = ["interpolate_sinc", "brent_maximize_sinc", "improve_extremum_sinc"]
+__all__ = ["interpolate_sinc", "brent_maximize_sinc", "improve_extremum_sinc", "improve_extremum"]
 
 
 def _max_effective_depth(offset: int, nx: int, max_depth: int, max_x: float) -> int:
@@ -185,4 +185,48 @@ def improve_extremum_sinc(
     xmid = torch.where(at_zero, torch.zeros_like(xb),
                        torch.where(past_end, torch.full_like(xb, float(nx)), xb))
     ymid = torch.where(at_zero, y0, torch.where(past_end, y_last, fb))
+    return xmid, ymid
+
+
+def improve_extremum(
+    y: torch.Tensor,
+    offset: int,
+    nx: int,
+    ixmid: torch.Tensor,
+    interpolation: str = "sinc",
+    max_depth: int = 1200,
+    is_max: bool = True,
+    max_x: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's full `improve_extremum` (periodic.rs:192-230), batched
+    over y (B, L) and ixmid (B, C).
+
+    interpolation: "none" returns (0, y[0]) (periodic.rs:197-199);
+    "parabolic" the 3-point parabola with the reference's second difference
+    `2*mid - (y[i+1] - y[i-1])` (periodic.rs:200-206, sic: the textbook one
+    is 2*mid - y[i-1] - y[i+1]); "sinc" Brent over the windowed-sinc
+    interpolant (`improve_extremum_sinc`; is_max=False negates it, a mode
+    the reference never invokes).
+    """
+    ixmid = torch.as_tensor(ixmid, dtype=y.dtype, device=y.device)
+    if interpolation == "sinc":
+        return improve_extremum_sinc(y, offset, nx, ixmid, max_depth, max_x=max_x, is_max=is_max)
+    y0 = y[:, :1].expand_as(ixmid)
+    if interpolation == "none":
+        return torch.zeros_like(ixmid), y0
+    if interpolation != "parabolic":
+        raise ValueError(f"unknown interpolation: {interpolation}")
+    i0 = torch.floor(ixmid).long()
+    ym, yc, yp = (_gather(y, i0 + d) for d in (-1, 0, 1))
+    diff = yp - ym
+    dy = 0.5 * diff
+    d2y = 2.0 * yc - diff  # sic: periodic.rs:204
+    xmid = ixmid + dy / d2y
+    ymid = yc + 0.5 * dy * dy / d2y
+    L = y.shape[-1]
+    y_last = y[:, min(nx - 1, L - 1)][:, None].expand_as(ixmid)
+    at_zero = ixmid == 0.0
+    past_end = ixmid >= nx
+    xmid = torch.where(at_zero, torch.zeros_like(xmid), torch.where(past_end, torch.full_like(xmid, float(nx)), xmid))
+    ymid = torch.where(at_zero, y0, torch.where(past_end, y_last, ymid))
     return xmid, ymid
