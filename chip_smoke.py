@@ -159,10 +159,14 @@ checkout. Phases, each an uncaught exception when it fails:
    nothing else); X3 against its plain version and X3, the "ct" chain and
    E against the float64 FFT on the card, per frame (X3_TOL; E at
    CT_FUSED_F32_TOL); X3 against its plain version at every n its gate
-   admits (4 frames each); float64 into X3 raises ValueError, directly and
-   through the backend name; the times (CUDA events, mean of 5) of X3, E,
-   the "ct" chain and cuFFT rfft-power-irfft, X3's bound (`x3_bound`),
-   registers and spills;
+   admits (4 frames each), and with 2 x SMs + 1 frames (each block walks
+   two or three) at X3_MANY_NS; float64 into X3 raises ValueError,
+   directly and through the backend name; the times (CUDA events, mean of
+   5) of X3, E, the "ct" chain and cuFFT rfft-power-irfft, X3's bound
+   (`x3_bound`), registers, and 0 bytes of stack frame and spill in X3's
+   kernel; then X3 at n = 16,384 (the bench recording framed
+   16,384 / 4,096, windowed: no other hand-written kernel takes it) against
+   its plain version and the float64 FFT, timed beside cuFFT;
 15. the examples (`check_examples`): examples/torch/pitch_detection.py,
    formant_extraction.py and serving_client.py with `--device cuda`, each
    run counted, checked as tests/test_torch_examples.py checks them.
@@ -218,6 +222,13 @@ CT_FUSED_F32_TOL = 4e-6
 # tests/test_autocorr.py:172-190's 2e-5 for voxtpu's x3 (measured up to
 # 7.7e-6 on the card); the "ct" chain against the float64 FFT the same.
 X3_TOL = 2e-5
+# Lengths at which phase 14 also runs X3 with 2 x SMs + 1 frames, so that
+# each block walks two or three frames: the ring of x chunks runs ahead
+# across frames, and the cc pieces, the power's handover and the lags'
+# carry cycle through their stages. Each has a partial chunk and a partial
+# lag piece; all but 384 have several tiles, the last one partial (4224:
+# 6 chunks a frame, which the ring's 4 stages do not divide).
+X3_MANY_NS = (384, 4224, 12928, 20608)
 
 # Peak rates of one H100 SXM at 700 W: HBM3 bytes/s, float32 and float64
 # FLOP/s outside the tensor cores, and dense bfloat16 FLOP/s on them
@@ -254,7 +265,7 @@ BURG_LARGE = (
 # shared memory); C: two in each dtype (N = 14 and the capacity, N <= 128);
 # P: two in each dtype (N = 14 in registers, any N <= 128); F: the cost
 # pre-pass in each dtype, and the chain in each dtype with and without its
-# clock probe.
+# clock probe; X3: one kernel for every n its gate admits.
 STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4,
                  "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
@@ -2574,16 +2585,20 @@ def check_bench(card: str, checks: Checks, run_counted, expect_launches, dev) ->
             "command": line, "command_s": wall, "launches": counts}
 
 
-def check_autocorr_backends(x, nfft: int, build_log: str, card: str, checks: Checks, run_counted, dev) -> dict:
+def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, checks: Checks, run_counted,
+                            dev) -> dict:
     """Phase 14: kernel X3, the "ct" chain and kernel E at the bench shapes
     (x: the bench path's (F, 4096) windowed float32 frames): X3 through
     `power_and_autocorrelate(backend="ct_fused_x3")`, counted; X3 against
     its plain version and all three against the float64 FFT; X3 at every n
     its gate admits; float64 into X3 raises; times, X3's bound, registers
-    and spills. Returns X3's row of the kernels line."""
+    and spills; then X3 at n = 16,384 over `signal` (the bench path's
+    float32 samples) framed 16,384 / 4,096, beside cuFFT. Returns X3's row
+    of the kernels line."""
     import torch
 
     from voxtpu_torch import autocorr
+    from voxtpu_torch.frame import frame_signal
     from voxtpu_torch.ops import ct_fused, ct_x3
 
     (half, ac), counts = run_counted("power_and_autocorrelate(backend='ct_fused_x3'), bench shapes",
@@ -2606,18 +2621,29 @@ def check_autocorr_backends(x, nfft: int, build_log: str, card: str, checks: Che
                              close_per_frame("E ac vs float64 fft [bench]", ae, a64, CT_FUSED_F32_TOL, checks))
     del h64, a64, hc, acc, he, ae, half, ac
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def worst_vs_plain(frames: int, ns) -> float:
+        """X3's largest distance from its plain version over random frames
+        of each n, relative to each frame's largest value."""
+        worst = 0.0
+        for n in ns:
+            xs = torch.randn((frames, n), generator=gen, device=dev)
+            hk, ak = ct_x3.ct_x3_power_ac(xs, 2 * n)
+            hp, ap = ct_x3.ct_x3_power_ac_plain(xs, 2 * n)
+            for k, p in ((hk, hp), (ak, ap)):
+                scale = p.abs().amax(dim=-1, keepdim=True)
+                worst = max(worst, float(((k - p) / scale).abs().max()))
+        return worst
+
     admitted = [n for n in range(128, 24000, 128) if ct_x3.ct_x3_supported(n, 2 * n)]
-    gate_err = 0.0
-    for n in admitted:
-        xs = torch.randn((4, n), generator=gen, device=dev)
-        hk, ak = ct_x3.ct_x3_power_ac(xs, 2 * n)
-        hp, ap = ct_x3.ct_x3_power_ac_plain(xs, 2 * n)
-        for k, p in ((hk, hp), (ak, ap)):
-            scale = p.abs().amax(dim=-1, keepdim=True)
-            gate_err = max(gate_err, float(((k - p) / scale).abs().max()))
+    gate_err = worst_vs_plain(4, admitted)
     checks.true(f"X3 vs plain at every n its gate admits ({len(admitted)}: {admitted[0]} .. {admitted[-1]}, 4 frames "
                 f"each), per frame within {X3_TOL}", gate_err <= X3_TOL and admitted[-1] == 20608,
                 f"(largest {gate_err:.3e})")
+    many = 2 * torch.cuda.get_device_properties(dev).multi_processor_count + 1
+    many_err = worst_vs_plain(many, X3_MANY_NS)
+    checks.true(f"X3 vs plain with {many} frames (each block walks two or three) at n = {X3_MANY_NS}, per frame "
+                f"within {X3_TOL}", many_err <= X3_TOL, f"(largest {many_err:.3e})")
     raised = []
     for fn in (lambda: ct_x3.ct_x3_power_ac(x[:2].double(), nfft),
                lambda: autocorr.power_and_autocorrelate(x[:2].double(), backend="ct_fused_x3")):
@@ -2634,17 +2660,40 @@ def check_autocorr_backends(x, nfft: int, build_log: str, card: str, checks: Che
     bound_ms, bound_by = x3_bound(x, nfft)
     regs = kernel_registers(build_log, "ct_x3_kernel")
     spills = stack_frames(build_log, "ct_x3_kernel")
+    checks.true("X3's kernel: 0 bytes stack frame and spill", len(spills) == STACK_CHECKED["ct_x3_kernel"]
+                and all(v == (0, 0, 0) for v in spills.values()), str(sorted(spills.values())))
     print(f"  ct_x3, bench shapes ({x.shape[0]} frames of {x.shape[1]}): kernel {ms['ct_x3']:.3f} ms, plain "
           f"{ms['plain']:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}; E {ms['ct_fused']:.3f} ms, the ct chain "
           f"(cuBLAS) {ms['ct']:.3f} ms, cuFFT rfft-power-irfft {ms['cufft']:.3f} ms; registers "
           f"{sorted(regs.values())}, stack/spill {sorted(spills.values())}; vs float64 fft {errs64} [{card}]")
+    # n = 16,384: past E's gate (8192 in float32), where X3 competes with cuFFT alone.
+    n16 = 16384
+    x16 = hann_windowed(frame_signal(signal, n16, n16 // 4))
+    h16, a16 = ct_x3.ct_x3_power_ac(x16, 2 * n16)
+    hp, ap = ct_x3.ct_x3_power_ac_plain(x16, 2 * n16)
+    err16 = max(close_per_frame(f"X3 half vs plain / frame max [n = {n16}]", h16, hp, X3_TOL, checks),
+                close_per_frame(f"X3 ac vs plain / frame max [n = {n16}]", a16, ap, X3_TOL, checks))
+    del hp, ap
+    h64, a64 = f64_transform(x16, 2 * n16)
+    err16_64 = max(close_per_frame(f"X3 half vs float64 fft [n = {n16}]", h16, h64, X3_TOL, checks),
+                   close_per_frame(f"X3 ac vs float64 fft [n = {n16}]", a16, a64, X3_TOL, checks))
+    del h16, a16, h64, a64
+    ms16 = {"ct_x3": event_ms(lambda: ct_x3.ct_x3_power_ac(x16, 2 * n16)),
+            "cufft": event_ms(lambda: cufft_power_ac(x16, 2 * n16))}
+    bound16 = x3_bound(x16, 2 * n16)
+    print(f"  ct_x3, {x16.shape[0]} frames of {n16}: kernel {ms16['ct_x3']:.3f} ms, cuFFT rfft-power-irfft "
+          f"{ms16['cufft']:.3f} ms, bound {bound16[0]:.4f} ms by {bound16[1]}; within {err16:.3e} of plain and "
+          f"{err16_64:.3e} of the float64 fft per frame [{card}]")
     return {
         "name": "ct_x3", "route": "cuda", "source": X3[0], "replaces": X3[1], "launches": counts["ct_x3"],
         "max_abs_err": err, "max_rel_err_per_frame": rel, "ms": ms["ct_x3"], "plain_ms": ms["plain"],
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": ms["ct"], "path": "autocorr_x3", "frames": x.shape[0], "cufft_ms": ms["cufft"],
         "ct_fused_ms": ms["ct_fused"], "err_vs_f64_fft": errs64, "gate_ns": len(admitted), "gate_err": gate_err,
+        "many_frames": {"frames": many, "ns": X3_MANY_NS, "err": many_err},
         "registers": regs, "stack_spill": spills, "launches_by_path": {"autocorr_x3": counts["ct_x3"]},
+        "n16384": {"frames": x16.shape[0], "ms": ms16["ct_x3"], "cufft_ms": ms16["cufft"], "bound_ms": bound16[0],
+                   "err_vs_plain": err16, "err_vs_f64_fft": err16_64},
     }
 
 
@@ -3324,7 +3373,7 @@ def main() -> None:
     phase_took("phase 13, bench")
 
     # --- 14. the autocorrelation backends at the bench shapes: X3, "ct", E
-    rows.append(check_autocorr_backends(xe, nfft, build_log, card, checks, run_counted, dev))
+    rows.append(check_autocorr_backends(xe, nfft, sig32, build_log, card, checks, run_counted, dev))
     phase_took("phase 14, the autocorrelation backends")
 
     # --- 15. the examples on the card

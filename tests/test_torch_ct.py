@@ -199,22 +199,35 @@ def test_x3_gate_is_voxtpus():
 
 
 def test_x3_constants_mirror_the_cuda_source():
-    """kMaxN is the gate's largest n, and the launcher's shared memory
-    (kLd floats a row: the frame and the lag accumulator, n/128 rows each,
-    and a slab's three kSlab-row tensors) stays within a block's 227 KB at
-    every n the gate admits."""
+    """kMaxN is the gate's largest n; the kernel's tiling (k1 rows a tile,
+    rows of x a chunk, lag rows a piece) is the wrapper's; its shared
+    memory (the c2, s2 images, the power's image, the ring of x chunks and
+    two stages of cc pieces: the same at every n) stays within a block's
+    227 KB; and at every n the gate admits the tiles cover the N1 k1 rows,
+    the chunks the n/128 rows of x, the pieces the lag rows, and the
+    E(8ab) table the twiddles' indices: rows k1 < 64 tiles and l1 < 128,
+    columns j < 16 forward and 8 t + j < 8 tiles in the inverse."""
     src = CU.read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert const("kMaxN") == ct_x3._MAX_N == max(n for n in range(1, 24000) if ct_x3.ct_x3_supported(n, 2 * n))
-    assert "sizeof(float) * kLd * (2 * rows + 3 * kSlab)" in src
-
-    def smem(n):
-        return 4 * const("kLd") * (2 * (n // 128) + 3 * const("kSlab"))
-
-    assert smem(4096) == 84480 and smem(20608) == 220704 <= ct_fused.SMEM_LIMIT
+    admitted = [n for n in range(1, 24000) if ct_x3.ct_x3_supported(n, 2 * n)]
+    assert const("kMaxN") == ct_x3._MAX_N == max(admitted)
+    assert (const("kTile"), const("kChunk"), const("kPiece")) == (ct_x3._TILE, ct_x3._CHUNK, ct_x3._PIECE)
+    assert "kWBytes + kPBytes + kStages * kXBytes + 2 * kCCBytes + 8 * kBars" in src
+    table = 128 * 128 * 2
+    smem = (4 * table + 2 * const("kTile") * 128 * 2 + const("kStages") * const("kChunk") * 128 * 4
+            + 2 * 4 * const("kPiece") * const("kTile") * 2 + 8 * (const("kStages") + 5))
+    assert smem == 229448 <= ct_fused.SMEM_LIMIT
+    for n in admitted:
+        N1, tiles, chunks, pieces, a8, b8 = ct_x3._layout(n)
+        rows = n // 128
+        assert N1 == 2 * rows and (tiles - 1) * 64 < N1 <= tiles * 64, n
+        assert (chunks - 1) * 16 < rows <= chunks * 16 and (pieces - 1) * 32 < rows <= pieces * 32, n
+        assert a8 >= max(64 * tiles, 128) and b8 >= max(8 * tiles, 16), n
+    assert ct_x3._layout(4096) == (64, 1, 2, 1, 128, 16)
+    assert ct_x3._layout(20608) == (322, 6, 11, 6, 384, 48)
     assert kernels.suffixes("vt_ct_x3") == ("f32",)
 
 
@@ -241,30 +254,74 @@ def test_x3_wrapper_raises_on_the_card_path(monkeypatch, tmp_path):
         kernels.library.cache_clear()
 
 
-def test_device_table_layout():
-    """The tables the kernel reads, built on the CPU: the hi and lo parts
-    of each product's operand add up to the float32 table within bfloat16's
-    second rounding, -s2 and -sc are the negated parts, the right operands
-    sit in column pairs, and c1's odd rows of x (n = 384) are padded. hi +
-    lo keeps about 16 bits of each value: within 2^-17 of it."""
-    n = 384
+def _unimage(v, R, K):
+    """ct_x3._image's inverse: a (R, K) operand from its shared-memory image."""
+    return v.reshape(R // 8, K // 8, 8, 8).permute(0, 2, 1, 3).reshape(R, K)
+
+
+def _unfragments(v):
+    """ct_x3._fragments' inverse: a (64, 16) left operand from the
+    registers of 128 threads."""
+    return v.reshape(4, 8, 4, 2, 2, 2).permute(0, 4, 1, 3, 2, 5).reshape(64, 16)
+
+
+def test_x3_table_identities():
+    """The identities that let the kernel keep one pair of 128-point tables
+    and one twiddle table, at every n the gate admits: the inverse's
+    cos(2 pi k2 l1 / 128) is c2 and its sin is -s2 (both symmetric), and
+    its cb, sb are the forward twiddles tc and -ts, transposed."""
+    for n in (n for n in range(128, 20609, 128) if ct_x3.ct_x3_supported(n, 2 * n)):
+        c1, s1, c2, s2, tc, ts = ct_fft._fwd_tables_np(2 * n, n)
+        ca, sa, cb, sb, cc, sc = ct_fft._inv_tables_np(2 * n, n)
+        assert np.array_equal(ca, c2) and np.array_equal(sa, -s2), n
+        assert np.array_equal(c2, c2.T) and np.array_equal(s2, s2.T), n
+        assert np.array_equal(cb, tc.T) and np.array_equal(sb, -ts.T), n
+
+
+@pytest.mark.parametrize("n", [384, 4224])
+def test_device_table_layout(n):
+    """The tables the kernel reads, built on the CPU and unpacked: the hi
+    and lo parts of c2 and s2 (images), of c1 and s1 (register fragments
+    a tile and chunk) and of cc and sc (images a tile and piece) add up to
+    ct_fft's tables within bfloat16's second rounding (hi + lo keeps about
+    16 bits: within 2^-17), zero where the tiles run past N1, the rows of
+    x and the lag rows; the products of the twiddle factors E(8ab) E(am)
+    are the forward twiddles (tc, -ts) and the inverse's (cb, sb) to
+    float32 rounding. n = 384: one tile, chunk and piece; n =
+    4224: 2 tiles (66 k1 rows), 3 chunks, 2 pieces."""
     bf, f32 = ct_x3._device_tables(n, 2 * n, torch.device("cpu"))
-    N1, rows, rows_p = 6, 3, 4
-    k1, r, l2 = np.arange(N1), np.arange(128), np.arange(rows)
-    t = {"c1": np.cos(2 * np.pi * np.outer(k1, l2) / N1),  # (k1, n1)
-         "s2": np.sin(-2 * np.pi * np.outer(r, r) / 128),  # (n2, k2)
-         "ts": np.sin(-2 * np.pi * np.outer(k1, r) / (2 * n)),  # (k1, n2)
-         "sc": np.sin(2 * np.pi * np.outer(l2, k1) / N1)}  # (l2, k1)
-    a, b, c = N1 * rows_p, 128 * 128, rows * N1
-    assert bf.dtype == torch.bfloat16 and bf.numel() == 4 * a + 10 * b + 4 * c
-    assert f32.numel() == 4 * N1 * 128
+    N1, tiles, chunks, pieces, a8, b8 = ct_x3._layout(n)
+    c1, s1, c2, s2, tc, ts = ct_fft._fwd_tables_np(2 * n, n)
+    cc, sc, cb, sb = [ct_fft._inv_tables_np(2 * n, n)[i] for i in (4, 5, 2, 3)]
+    assert bf.dtype == torch.bfloat16 and bf.numel() == 4 * 128 * 128 + tiles * chunks * 4096 + tiles * pieces * 8192
     v = bf.float()
-    c1 = (v[:a] + v[a:2 * a]).reshape(N1, rows_p)
-    np.testing.assert_allclose(c1[:, :rows].numpy(), t["c1"], atol=2 ** -17)
-    assert torch.all(c1[:, rows:] == 0)
-    ns2h = v[4 * a + 4 * b: 4 * a + 5 * b].reshape(64, 128, 2)
-    assert torch.equal(ns2h, -v[4 * a + 2 * b: 4 * a + 3 * b].reshape(64, 128, 2))
-    np.testing.assert_allclose(ns2h[3, 7, 1].item(), -t["s2"][7, 7], atol=4e-3)
-    nsc = v[4 * a + 10 * b + 2 * c:].reshape(2, rows, N1).sum(0)
-    np.testing.assert_allclose(nsc.numpy(), -t["sc"], atol=2 ** -17)
-    np.testing.assert_allclose(f32[N1 * 128: 2 * N1 * 128].reshape(N1, 128).numpy(), t["ts"], atol=1e-7)
+    T = 128 * 128
+    for i, m in enumerate((c2, s2)):
+        got = _unimage(v[2 * i * T:(2 * i + 1) * T], 128, 128) + _unimage(v[(2 * i + 1) * T:(2 * i + 2) * T], 128, 128)
+        np.testing.assert_allclose(got.numpy(), m, rtol=0, atol=2 ** -17)
+    off = 4 * T
+    for t in range(tiles):
+        for c in range(chunks):
+            part = [_unfragments(v[off + (4 * (t * chunks + c) + i) * 1024:][:1024]) for i in range(4)]
+            for got, m in ((part[0] + part[1], c1.T), (part[2] + part[3], s1.T)):
+                want = np.zeros((64, 16))
+                blk = m[64 * t:64 * (t + 1), 16 * c:16 * (c + 1)]
+                want[:blk.shape[0], :blk.shape[1]] = blk
+                np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2 ** -17)
+    off += tiles * chunks * 4096
+    for t in range(tiles):
+        for p in range(pieces):
+            part = [_unimage(v[off + (4 * (t * pieces + p) + i) * 2048:][:2048], 32, 64).T for i in range(4)]
+            for got, m in ((part[0] + part[1], cc), (part[2] + part[3], sc)):
+                want = np.zeros((64, 32))
+                blk = m[64 * t:64 * (t + 1), 32 * p:32 * (p + 1)]
+                want[:blk.shape[0], :blk.shape[1]] = blk
+                np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2 ** -17)
+    assert f32.dtype == torch.float32 and f32.numel() == 2 * (a8 * b8 + a8 * 8)
+    e8 = torch.complex(*f32[:2 * a8 * b8].reshape(a8, b8, 2).unbind(-1)).numpy()
+    em = torch.complex(*f32[2 * a8 * b8:].reshape(a8, 8, 2).unbind(-1)).numpy()
+    k1, m = np.arange(N1)[:, None], np.arange(128)[None, :]
+    fwd = e8[k1, m // 8] * em[k1, m % 8]  # E(k1 n2), k1 rows
+    np.testing.assert_allclose(fwd, tc.T - 1j * ts.T, rtol=0, atol=2e-7)
+    inv = e8[m.T, k1.T // 8] * em[m.T, k1.T % 8]  # E(l1 k1), l1 rows
+    np.testing.assert_allclose(inv, cb.T + 1j * sb.T, rtol=0, atol=2e-7)

@@ -16,18 +16,19 @@ over its tables, every product three-pass (`_dot3`), in the input's
 dtype (float64 too, as voxtpu's interpret mode runs it). `ct_x3_power_ac`
 runs it for CPU tensors and launches the kernel for CUDA tensors; the
 kernel takes float32 only, and float64 on the card raises.
-`ct_x3_supported` is voxtpu's shape gate for the fused kernel.
+`ct_x3_supported` is voxtpu's shape gate for the fused kernel; every n it
+admits runs the one kernel, in tiles of 64 k1 rows (`_layout`).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from voxtpu_torch.device import constant
 from voxtpu_torch.ops import kernels
-from voxtpu_torch.ops.ct_fft import N2, _fwd_table, _inv_table, ct_autocorr, ct_half_power, ct_power
+from voxtpu_torch.ops.ct_fft import N2, _fwd_tables_np, _inv_tables_np, ct_autocorr, ct_half_power, ct_power
 
 __all__ = ["ct_x3_supported", "ct_x3_power_ac_plain", "ct_x3_power_ac"]
 
@@ -68,45 +69,90 @@ def ct_x3_power_ac_plain(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torc
     return ct_half_power(p, n // 2 + 1).contiguous(), ct_autocorr(p, n, mm=_dot3)
 
 
-def _pairs(t: torch.Tensor) -> torch.Tensor:
-    """(K, N) -> (K/2, N, 2): the right operand of a product with each
-    column's (k, k+1) neighbours side by side, one 32-bit load a pair."""
-    K, N = t.shape
-    return t.reshape(K // 2, 2, N).transpose(1, 2)
+# The kernel's tiling (csrc/ct_x3.cu): k1 rows a tile (one product's M),
+# rows of x a chunk (stage 1's K), lag rows a piece of the last product.
+_TILE, _CHUNK, _PIECE = 64, 16, 32
+
+
+def _layout(n: int) -> tuple[int, int, int, int, int, int]:
+    """(N1, tiles, chunks, pieces, a8, b8) of an n-sample frame, as
+    csrc/ct_x3.cu's shape_of: N1 = 2n/128 k1 rows in tiles of 64, n/128
+    rows of x in chunks of 16 and lag rows in pieces of 32, and the a8 x
+    b8 table of E(8ab)."""
+    rows = n // N2
+    tiles = -(-2 * rows // _TILE)
+    return 2 * rows, tiles, -(-rows // _CHUNK), -(-rows // _PIECE), max(_TILE * tiles, N2), max(8 * tiles, 16)
+
+
+def _image(m: torch.Tensor) -> torch.Tensor:
+    """(R, K) -> a wgmma operand's shared-memory image, no swizzle,
+    K-major: 8 x 8 core matrices of 128 contiguous bytes, the K/8 of an
+    8-row group side by side (SBO = K/8 x 128 bytes)."""
+    R, K = m.shape
+    return m.reshape(R // 8, 8, K // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def _fragments(m: torch.Tensor) -> torch.Tensor:
+    """(64, 16) -> a left operand as the registers of 128 threads, 8
+    values each: thread 32 w + 4 g + t holds rows 16 w + g (+ 8) and
+    columns 2t, 2t + 1 (+ 8), register 2 (column half) + (row half)."""
+    return m.reshape(4, 2, 8, 2, 4, 2).permute(0, 2, 4, 3, 1, 5).reshape(-1)
+
+
+def _split_np(m: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 table's bfloat16 (hi, lo)."""
+    t = torch.as_tensor(m, dtype=torch.float32)
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def _padded(m: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    out = np.zeros((rows, cols))
+    out[: m.shape[0], : m.shape[1]] = m
+    return out
 
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(n: int, nfft: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's tables on the card, made once for each (n, nfft,
-    device) from ops/ct_fft.py's: the products' operands split into
-    bfloat16 hi and lo on the device, (hi, lo) of c1, s1, c2, s2, -s2, ca,
-    sa, cc, -sc in one buffer (c1, s1 as (k1, n1) with an even row length,
-    zero-padded; c2 .. sa in column pairs, `_pairs`; cc, sc as (l2, k1)),
-    and the twiddles tc, ts as (k1, n2) and the inverse's cb, sb in
-    float32 in another (csrc/ct_x3.cu's Tables)."""
-    fwd = [constant(_fwd_table, nfft, n, i, dtype=torch.float32, device=device) for i in range(6)]
-    inv = [constant(_inv_table, nfft, n, i, dtype=torch.float32, device=device) for i in range(6)]
-    c1, s1, c2, s2, tc, ts = fwd[0].T, fwd[1].T, fwd[2], fwd[3], fwd[4].T, fwd[5].T
-    ca, sa, cb, sb, cc, sc = inv[0], inv[1], inv[2], inv[3], inv[4].T, inv[5].T
-    pad = (n // N2) % 2
-    parts = []
-    for name, m in (("c1", c1), ("s1", s1), ("c2", c2), ("s2", s2), ("ns2", -s2),
-                    ("ca", ca), ("sa", sa), ("cc", cc), ("nsc", -sc)):
-        if name in ("c1", "s1") and pad:
-            m = torch.nn.functional.pad(m, (0, pad))
-        hi = m.to(torch.bfloat16)
-        lo = (m - hi.float()).to(torch.bfloat16)
-        if name in ("c2", "s2", "ns2", "ca", "sa"):
-            hi, lo = _pairs(hi), _pairs(lo)
-        parts += [hi.reshape(-1), lo.reshape(-1)]
-    f32 = torch.cat([t.reshape(-1) for t in (tc, ts, cb, sb)])
-    return torch.cat(parts).contiguous(), f32.contiguous()
+    device) from ops/ct_fft.py's float64 ones, every product's operand
+    split into bfloat16 hi and lo once, here.
+
+    The bfloat16 buffer holds what the kernel copies into shared memory
+    with no change: the images (`_image`) of c2 hi, c2 lo, s2 hi, s2 lo
+    (128 x 128, symmetric: stage 3's right operand and, as the inverse's
+    cos and -sin tables, its left one, so the inverse's own tables and a
+    negated s2 are not stored); c1, s1 (k1, n1) as left-operand register
+    fragments (`_fragments`), for each tile of 64 k1 rows and chunk of 16
+    n1 columns c1 hi, c1 lo, s1 hi, s1 lo; and cc, sc (k1, l2) as images
+    of (l2, k1) pieces, for each tile and piece of 32 lag rows cc hi, cc
+    lo, sc hi, sc lo. Tables are zero past N1, n/128 and the lag rows. The
+    float32 buffer holds the twiddles' factors as (cos, sin) pairs of
+    E(p) = e^{2 pi i p / N}: E(8ab) for a < a8, b < b8, then E(am) for
+    m < 8 (`_layout`); csrc/ct_x3.cu multiplies two to get E(k1 n2) and
+    E(k1 l1)."""
+    _, tiles, chunks, pieces, a8, b8 = _layout(n)
+    c1, s1, c2, s2 = _fwd_tables_np(nfft, n)[:4]
+    cc, sc = _inv_tables_np(nfft, n)[4:]
+    parts = [_image(p) for m in (c2, s2) for p in _split_np(m)]
+    c1p = [p for m in (c1.T, s1.T) for p in _split_np(_padded(m, _TILE * tiles, _CHUNK * chunks))]
+    parts += [_fragments(p[_TILE * t: _TILE * (t + 1), _CHUNK * c: _CHUNK * (c + 1)])
+              for t in range(tiles) for c in range(chunks) for p in c1p]
+    ccp = [p for m in (cc, sc) for p in _split_np(_padded(m, _TILE * tiles, _PIECE * pieces))]
+    parts += [_image(p[_TILE * t: _TILE * (t + 1), _PIECE * j: _PIECE * (j + 1)].T)
+              for t in range(tiles) for j in range(pieces) for p in ccp]
+    a = np.arange(a8)[:, None]
+    e8, em = (8 * a * np.arange(b8)) % nfft, (a * np.arange(8)) % nfft
+    f32 = np.concatenate([np.stack([np.cos(2 * np.pi * p / nfft), np.sin(2 * np.pi * p / nfft)], -1).ravel()
+                          for p in (e8, em)])
+    return torch.cat(parts).contiguous().to(device), torch.as_tensor(f32, dtype=torch.float32).to(device)
 
 
 def ct_x3_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
     """`ct_x3_power_ac_plain` for CPU tensors; on the card, csrc/ct_x3.cu
-    over (B, n) float32 frames, one block a frame. Both raise for a shape
-    that fails `ct_x3_supported`; the card raises for float64."""
+    over (B, n) float32 frames, one block an SM walking the frames. Both
+    raise for a shape that fails `ct_x3_supported`; the card raises for
+    float64."""
     if not ct_x3_supported(x.shape[-1], nfft):
         raise ValueError(f"ct_x3_power_ac: unsupported shape {tuple(x.shape)}, nfft={nfft}")
     if kernels.on_cpu(x):
@@ -118,6 +164,8 @@ def ct_x3_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tens
         raise ValueError(f"ct_x3_power_ac: x (B, n) on the card, got {tuple(x.shape)}")
     B, n = x.shape
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies rows of x in bulk, from 16-byte boundaries
+        x = x.clone()
     bf16, f32 = _device_tables(n, nfft, x.device)
     half = torch.empty((B, n // 2 + 1), dtype=x.dtype, device=x.device)
     ac = torch.empty((B, n), dtype=x.dtype, device=x.device)
