@@ -12,7 +12,8 @@ checkout. Phases, each an uncaught exception when it fails:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the nine kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report; every instantiation of kernels A-F, P and
-   X3 must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
+   X3 (E's thread-block cluster ones and B's device layout among them)
+   must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
    memory a block at C = 33 and 128 in both dtypes; beside it, the build
    of tools/burg_rates.cu's rate probes (phase 10);
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
@@ -35,10 +36,11 @@ checkout. Phases, each an uncaught exception when it fails:
    long frames against its plain version, on noisy frames of the recording
    (BURG_LARGE): in each dtype the register layout at up to its 512
    threads a block, its largest frame included, then the rows in shared
-   memory above that, up to the largest frame the kernel before it took;
-   each case must take the layout it names; then (3d) B, C and P at N =
-   33, 64 and 128 (LPC orders to 127, ORDER_NS) against their plain
-   versions in both dtypes (`check_orders`);
+   memory above that, up to the largest frame the kernel before it took,
+   then the rows in device memory (32,768 and 65,536 float32, 16,384 and
+   32,768 float64); each case must take the layout it names; then (3d) B,
+   C and P at N = 33, 64 and 128 (LPC orders to 127, ORDER_NS) against
+   their plain versions in both dtypes (`check_orders`);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
    launch count reset just before and read just after; G, A-D and P must
    have run once each and E and F not at all, outputs must be finite
@@ -48,9 +50,11 @@ checkout. Phases, each an uncaught exception when it fails:
    the whole signal within the fast-mode budgets, where a frame over a
    budget must be over it in the plain path too (see `check_budgets`);
    float64 launches no P (it never polishes); `analyze` at LPC order 40
-   in float64 on the card against the plain CPU path over the first 2 s,
-   and an order-127 formant stage into kernel D at R = 127, bit for bit
-   against the plain scan (`check_high_order_path`);
+   in float64 on the card against the plain CPU path over the first 1 s
+   (one second keeps the run's time down: the CPU path runs it three
+   times), and an order-127 formant stage into kernel D at R = 127 over
+   the same second, bit for bit against the plain scan
+   (`check_high_order_path`);
 6. the bench path: `analyze` at BENCH_44K (bench.py's 4096/1024, Viterbi
    off as bench.py runs it) over the same 126 tiles (15,369 frames), every
    kernel but F launched once; and bench_viterbi, the same with the
@@ -74,7 +78,9 @@ checkout. Phases, each an uncaught exception when it fails:
    flagship_viterbi, all eight once; healthy outputs; on flagship_viterbi
    all eight kernels against their plain versions at its shapes and
    float64 card-vs-CPU parity over the first 2 s; then kernel E against
-   its plain version at every frame length its gate admits;
+   its plain version at every frame length its gate admits, which must
+   reach 16,384 in both dtypes (over a thread-block cluster above 8,192
+   float32 and 4,096 float64 samples);
 9. the command line, float32, from IEEE-float WAVs of the 126 tiles and of
    the 16 corpus recordings: `python3 -m voxtpu_torch analyze` as a
    subprocess against in-process `analyze`, and `cli.main(["corpus", ...,
@@ -164,12 +170,22 @@ checkout. Phases, each an uncaught exception when it fails:
    directly and through the backend name; the times (CUDA events, mean of
    5) of X3, E, the "ct" chain and cuFFT rfft-power-irfft, X3's bound
    (`x3_bound`), registers, and 0 bytes of stack frame and spill in X3's
-   kernel; then X3 at n = 16,384 (the bench recording framed
-   16,384 / 4,096, windowed: no other hand-written kernel takes it) against
-   its plain version and the float64 FFT, timed beside cuFFT;
+   kernel; then X3 and E (a cluster of 2 blocks a frame) at n = 16,384
+   (the bench recording framed 16,384 / 4,096, windowed) against their
+   plain versions and the float64 FFT, timed beside cuFFT;
 15. the examples (`check_examples`): examples/torch/pitch_detection.py,
    formant_extraction.py and serving_client.py with `--device cuda`, each
-   run counted, checked as tests/test_torch_examples.py checks them.
+   run counted, checked as tests/test_torch_examples.py checks them;
+16. frames of 16,384 and 32,768 (`check_large_frames`): `analyze` at
+   LARGE_44K (tests/test_large_frames.py:34-52's configuration, hop n/4)
+   over the 126 tiles in float32, counted (E once at 16,384 and never at
+   32,768, past its gate; G, A-D and P once; F never), healthy, timed end
+   to end; float32 against float64 on the card within the budgets by
+   phase 5's rule; float64 on the card against the plain CPU path over
+   the first 2 s; E in float64 at 8,192 and 16,384 on the recording's
+   frames (clusters of 2 and 4 blocks) and B at the 32,768 path's frames
+   (the rows in device memory) in both dtypes against their plain
+   versions, timed beside their bounds (E beside cuFFT too).
 
 Each phase prints the seconds it took.
 
@@ -245,28 +261,30 @@ PEAK_SM_HZ = 1.98e9
 RATES_SRC = ROOT / "tools" / "burg_rates.cu"
 RATE_PROBES = {"cvt_f64_f32": 0, "dfma_f64": 1, "lds_32bit": 2, "cvt_with_dfma": 3}
 # Kernel B on long frames, checked against its plain version on noisy frames
-# of the recording: (dtype name, frame length, frames, rows in shared
-# memory). In each dtype the register layout at 480 threads and at its
-# largest frame (512 threads x its width c, plus 1), then the rows in shared
-# memory above it and at the largest frame the one-block-of-256 kernel that
-# this one replaced took (2 n values and its static shared memory within the
-# 232,448 bytes a block may take).
+# of the recording: (dtype name, frame length, frames, where the rows live).
+# In each dtype the register layout at 480 threads and at its largest frame
+# (512 threads x its width c, plus 1), then the rows in shared memory above
+# it and at the largest frame the one-block-of-256 kernel that this one
+# replaced took (2 n values and its static shared memory within the 232,448
+# bytes a block may take), then the rows in device memory above that.
 BURG_LARGE = (
-    ("float32", 16384, 256, False), ("float32", 17921, 64, False), ("float32", 20480, 256, True),
-    ("float32", 28927, 16, True),
-    ("float64", 11025, 256, False), ("float64", 11777, 64, False), ("float64", 12288, 256, True),
-    ("float64", 14431, 16, True),
+    ("float32", 16384, 256, "registers"), ("float32", 17921, 64, "registers"), ("float32", 20480, 256, "shared"),
+    ("float32", 28927, 16, "shared"), ("float32", 32768, 256, "device"), ("float32", 65536, 64, "device"),
+    ("float64", 11025, 256, "registers"), ("float64", 11777, 64, "registers"), ("float64", 12288, 256, "shared"),
+    ("float64", 14431, 16, "shared"), ("float64", 16384, 256, "device"), ("float64", 32768, 64, "device"),
 )
 
 # The kernels whose build must show 0 bytes of stack frame and spill (phase
 # 2), with their instantiation counts. D: two kernels in two dtypes; E: one a
-# frame length its gate admits (128-8192 in float32, 128-4096 in float64); A:
-# one in each dtype; B: two in each dtype (its register width, the rows in
-# shared memory); C: two in each dtype (N = 14 and the capacity, N <= 128);
-# P: two in each dtype (N = 14 in registers, any N <= 128); F: the cost
+# frame length its gate admits (128-16384 in either dtype: one block a frame
+# up to 8192 in float32 and 4096 in float64, a cluster above); A: one in
+# each dtype; B: three in each dtype (its register width, the rows in shared
+# memory, the rows in device memory); C: two in each dtype (N = 14 and the
+# capacity, N <= 128); P: two in each dtype (N = 14 in registers, any N <=
+# 128); F: the cost
 # pre-pass in each dtype, and the chain in each dtype with and without its
 # clock probe; X3: one kernel for every n its gate admits.
-STACK_CHECKED = {"formant_scan": 4, "ct_fused": 13, "refine_kernel": 2, "burg_kernel": 4, "roots_kernel": 4,
+STACK_CHECKED = {"formant_scan": 4, "ct_fused": 16, "refine_kernel": 2, "burg_kernel": 6, "roots_kernel": 4,
                  "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
 # coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
@@ -826,13 +844,12 @@ def check_burg_large(checks: Checks, dev) -> None:
 
     from voxtpu_torch.ops import burg
 
-    for dname, n, frames, shared in BURG_LARGE:
+    for dname, n, frames, rows in BURG_LARGE:
         dt = getattr(torch, dname)
         config = burg.launch_config(n, dt)
         x = burg_large_frames(n, frames, dt, dev)
         tag = f"{frames} frames of {n}, {dname}, {config}"
-        checks.true(f"burg layout [{tag}]", config.shared == shared,
-                    f"(rows {'in shared memory' if shared else 'in registers'} wanted)")
+        checks.true(f"burg layout [{tag}]", config.rows == rows, f"(rows in {rows} wanted)")
         ck, sk = burg.burg(x, 13)
         cp, sp = burg.burg_plain(x, 13)
         checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
@@ -1300,8 +1317,8 @@ def check_high_order_path(head: np.ndarray, cfg, checks: Checks, dev) -> None:
 
     At order 40 the formants move by more than the slice test's tolerances
     when the input moves by one ulp: the CPU path itself does (8.3e-4 Hz in
-    the frequencies, 4.4e-3 in the bandwidths over these 2 s, measured on
-    the CPU with this function's inputs), as Burg's sums and the roots'
+    the frequencies, 4.4e-3 in the bandwidths over the first 2 s, measured
+    on the CPU with this function's inputs), as Burg's sums and the roots'
     libm calls round a few ulps apart on the card and the CPU. So the
     formants are held to twice the CPU path's own spread between `head` and
     its two one-ulp neighbours, measured here; every other key to the
@@ -1385,7 +1402,8 @@ def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks,
 
 def check_ct_fused_gate(checks: Checks, dev) -> None:
     """Kernel E against its plain version at every frame length its shape
-    gate admits, in both dtypes: 256 frames of seeded noise each."""
+    gate admits, in both dtypes: 256 frames of seeded noise each. The gate
+    must reach 16,384 in both (voxtpu's, on power-of-two frames)."""
     import torch
 
     from voxtpu_torch.ops.ct_fused import ct_fused_supported
@@ -1397,7 +1415,7 @@ def check_ct_fused_gate(checks: Checks, dev) -> None:
             x = torch.randn((256, n), generator=gen, dtype=dt, device=dev)
             check_ct_fused(x, 2 * n, checks, f"gate, n={n}, {'f64' if dt == torch.float64 else 'f32'}")
             n *= 2
-        checks.true(f"ct_fused gate reaches n=4096 in {dt}", n > 4096, f"(first refused n={n})")
+        checks.true(f"ct_fused gate reaches n=16384 in {dt}", n == 32768, f"(first refused n={n})")
 
 
 def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
@@ -1704,9 +1722,10 @@ def hold_budgets(label: str, out32: dict, out64: dict, plain_err, checks: Checks
         checks.true(f"{label} f32 {key}", bool(plain_over.all()), detail)
 
 
-def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Checks) -> None:
-    """The CLI path's budgets (`hold_budgets`), the plain CPU path looked up
-    at the frames over a budget.
+def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Checks, label: str = "cli") -> None:
+    """The CLI path's budgets (`hold_budgets`; or another path's, named by
+    label, at its cfg), the plain CPU path looked up at the frames over a
+    budget.
 
     float32 at the 2205/441 framing breaks the f0 budget in the plain
     version too (PERF.md). Pitch and MFCC are frame-local, so those frames
@@ -1742,7 +1761,7 @@ def check_budgets(out32: dict, out64: dict, signal: np.ndarray, cfg, checks: Che
         v64, f0_64 = plain(key, idx, torch.float64)
         return frame_err(key, v32, v64, f0_64)
 
-    hold_budgets("cli", out32, out64, plain_err, checks)
+    hold_budgets(label, out32, out64, plain_err, checks)
 
 
 def plain_periodic(one: np.ndarray, tiles: int, cfg, dt, frames_total: int, dev) -> dict:
@@ -2593,8 +2612,10 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
     its plain version and all three against the float64 FFT; X3 at every n
     its gate admits; float64 into X3 raises; times, X3's bound, registers
     and spills; then X3 at n = 16,384 over `signal` (the bench path's
-    float32 samples) framed 16,384 / 4,096, beside cuFFT. Returns X3's row
-    of the kernels line."""
+    float32 samples) framed 16,384 / 4,096, beside cuFFT, and kernel E at
+    the same frames (a cluster of 2 blocks a frame) against its plain
+    version and the float64 FFT, timed beside X3 and cuFFT. Returns X3's
+    row of the kernels line and E's numbers at n = 16,384."""
     import torch
 
     from voxtpu_torch import autocorr
@@ -2666,7 +2687,8 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
           f"{ms['plain']:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}; E {ms['ct_fused']:.3f} ms, the ct chain "
           f"(cuBLAS) {ms['ct']:.3f} ms, cuFFT rfft-power-irfft {ms['cufft']:.3f} ms; registers "
           f"{sorted(regs.values())}, stack/spill {sorted(spills.values())}; vs float64 fft {errs64} [{card}]")
-    # n = 16,384: past E's gate (8192 in float32), where X3 competes with cuFFT alone.
+    # n = 16,384: X3 beside E, whose float32 frames of 16,384 take a cluster
+    # of 2 blocks, and cuFFT.
     n16 = 16384
     x16 = hann_windowed(frame_signal(signal, n16, n16 // 4))
     h16, a16 = ct_x3.ct_x3_power_ac(x16, 2 * n16)
@@ -2677,14 +2699,28 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
     h64, a64 = f64_transform(x16, 2 * n16)
     err16_64 = max(close_per_frame(f"X3 half vs float64 fft [n = {n16}]", h16, h64, X3_TOL, checks),
                    close_per_frame(f"X3 ac vs float64 fft [n = {n16}]", a16, a64, X3_TOL, checks))
-    del h16, a16, h64, a64
+    e16_abs = check_ct_fused(x16, 2 * n16, checks, f"{x16.shape[0]} frames of {n16}, recording, f32")
+    he, ae = ct_fused.ct_fused_power_ac(x16, 2 * n16)
+    e16_64 = max(close_per_frame(f"E half vs float64 fft [n = {n16}]", he, h64, CT_FUSED_F32_TOL, checks),
+                 close_per_frame(f"E ac vs float64 fft [n = {n16}]", ae, a64, CT_FUSED_F32_TOL, checks))
+    del h16, a16, h64, a64, he, ae
     ms16 = {"ct_x3": event_ms(lambda: ct_x3.ct_x3_power_ac(x16, 2 * n16)),
-            "cufft": event_ms(lambda: cufft_power_ac(x16, 2 * n16))}
+            "cufft": event_ms(lambda: cufft_power_ac(x16, 2 * n16)),
+            "ct_fused": event_ms(lambda: ct_fused.ct_fused_power_ac(x16, 2 * n16)),
+            "ct_fused_plain": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x16, 2 * n16))}
     bound16 = x3_bound(x16, 2 * n16)
+    e_bound16 = ct_fused_bound(x16, 2 * n16)
     print(f"  ct_x3, {x16.shape[0]} frames of {n16}: kernel {ms16['ct_x3']:.3f} ms, cuFFT rfft-power-irfft "
           f"{ms16['cufft']:.3f} ms, bound {bound16[0]:.4f} ms by {bound16[1]}; within {err16:.3e} of plain and "
           f"{err16_64:.3e} of the float64 fft per frame [{card}]")
-    return {
+    print(f"  ct_fused, {x16.shape[0]} frames of {n16} (a cluster of 2 blocks a frame): kernel "
+          f"{ms16['ct_fused']:.3f} ms, plain {ms16['ct_fused_plain']:.3f} ms, cuFFT {ms16['cufft']:.3f} ms, X3 "
+          f"{ms16['ct_x3']:.3f} ms, bound {e_bound16[0]:.4f} ms by {e_bound16[1]}; within {e16_64:.3e} of the "
+          f"float64 fft per frame [{card}]")
+    e16 = {"ms": ms16["ct_fused"], "plain_ms": ms16["ct_fused_plain"], "bound_ms": e_bound16[0],
+           "bound_by": e_bound16[1], "library_ms": ms16["cufft"], "x3_ms": ms16["ct_x3"], "max_abs_err": e16_abs,
+           "err_vs_f64_fft": e16_64, "frames": x16.shape[0], "n": n16, "dtype": "float32"}
+    x3_row = {
         "name": "ct_x3", "route": "cuda", "source": X3[0], "replaces": X3[1], "launches": counts["ct_x3"],
         "max_abs_err": err, "max_rel_err_per_frame": rel, "ms": ms["ct_x3"], "plain_ms": ms["plain"],
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2693,8 +2729,9 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
         "many_frames": {"frames": many, "ns": X3_MANY_NS, "err": many_err},
         "registers": regs, "stack_spill": spills, "launches_by_path": {"autocorr_x3": counts["ct_x3"]},
         "n16384": {"frames": x16.shape[0], "ms": ms16["ct_x3"], "cufft_ms": ms16["cufft"], "bound_ms": bound16[0],
-                   "err_vs_plain": err16, "err_vs_f64_fft": err16_64},
+                   "err_vs_plain": err16, "err_vs_f64_fft": err16_64, "ct_fused_ms": ms16["ct_fused"]},
     }
+    return x3_row, e16
 
 
 def check_examples(checks: Checks, run_counted, device: str = "cuda") -> dict:
@@ -2731,6 +2768,109 @@ def check_examples(checks: Checks, run_counted, device: str = "cuda") -> dict:
                 bool([v for v in track if v > 0]) and all(60 <= v <= 500 for v in track if v > 0)
                 and "server stats: " in out and "viterbi f0 track:" in out, str(track[:8]))
     return {"launches": launches, "pitch_f0": f0}
+
+
+def large_config(frame_len: int):
+    """LARGE_44K at frame_len: tests/test_large_frames.py:34-52's
+    configuration (fmin 60, fmax 600, 16 candidates, Burg order 13, MFCC 13
+    up to 8,000 Hz, hop frame_len / 4, Viterbi off) at 44.1 kHz."""
+    from voxtpu_torch.pipeline import AnalysisConfig, FormantConfig, MfccConfig, PitchConfig
+
+    return AnalysisConfig(sample_rate=44100.0, frame_len=frame_len, hop=frame_len // 4,
+                          pitch=PitchConfig(fmin=60.0, fmax=600.0, max_candidates=16),
+                          formant=FormantConfig(n_coeffs=13), mfcc=MfccConfig(num_coeffs=13, freq_hi=8000.0))
+
+
+# Phase 16's frame lengths: 16,384 (kernel E over a cluster of 2 blocks in
+# float32, 4 in float64; kernel B's register layout in float32, its device
+# layout in float64) and 32,768 (past E's gate: cuFFT; B's device layout).
+LARGE_NS = (16384, 32768)
+
+
+def check_large_frames(signal: np.ndarray, sig32, sig64, card: str, checks: Checks, run_counted, expect_launches,
+                       cvt_s: float, dev) -> dict:
+    """Phase 16: `analyze` at LARGE_44K over the 126 tiles at each of
+    LARGE_NS in float32, counted (E launched once at 16,384 and not at
+    32,768, G, A-D and P once, F never), healthy, end to end; float32
+    against float64 on the card within the budgets by phase 5's rule;
+    float64 on the card against the plain CPU path over the first 2 s.
+    Then kernel E in float64 at 8,192 and 16,384 on the recording's frames
+    (clusters of 2 and 4 blocks) and kernel B at the 32,768 path's frames
+    (the rows in device memory), each against its plain version and timed
+    beside its bound (E beside cuFFT too). Returns the phase's numbers."""
+    import torch
+
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.ops import burg, ct_fused
+    from voxtpu_torch.pipeline import analyze
+
+    sr = 44100.0
+    head = signal[: int(2 * sr)]
+    res = {"paths": {}}
+    for n in LARGE_NS:
+        cfg = large_config(n)
+        e = 1 if n == 16384 else 0
+        analyze(sig32[: 4 * n], cfg)  # warm cuFFT plans and caches
+        torch.cuda.synchronize()
+        out32, counts = run_counted(f"large path, n = {n}, float32", lambda: analyze(sig32, cfg))
+        expect_launches(f"on the large path at n = {n}", counts, viterbi=0, ct_fused=e)
+        check_health(f"large path, n = {n}", out32, checks)
+        out64, counts64 = run_counted(f"large path, n = {n}, float64", lambda: analyze(sig64, cfg))
+        expect_launches(f"on the large path at n = {n} in float64", counts64, viterbi=0, ct_fused=e, polish=0)
+        print(f"large path, n = {n}: float32 vs float64 on the card, whole signal, against the plain path:")
+        check_budgets(out32, out64, signal, cfg, checks, label=f"large n={n}")
+        print(f"large path, n = {n}: float64 on the card vs the plain CPU path, first 2 s:")
+        compare_slice(f"large n={n} f64 card vs cpu", analyze(torch.as_tensor(head, device=dev), cfg),
+                      analyze(torch.as_tensor(head), cfg), sr, checks)
+        ms = sync_ms(lambda: analyze(sig32, cfg))
+        audio_s = len(signal) / sr
+        res["paths"][n] = {"frames": int(out32["f0"].numel()), "e2e_ms": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                           "launches": counts, "launches_f64": counts64}
+        print(f"end to end, float32, large path n = {n}: {ms:.2f} ms for {audio_s:.1f} s of audio "
+              f"({res['paths'][n]['frames']} frames) = {audio_s / (ms / 1e3):.1f} audio-s/s [{card}]")
+        del out32, out64
+    # E in float64 on the recording's frames: clusters of 2 (8,192) and 4
+    # (16,384) blocks; no path runs 8,192 here, so its launches are None.
+    res["ct_fused"] = {}
+    for n in (8192, 16384):
+        x = hann_windowed(frame_signal(sig64, n, n // 4)).contiguous()
+        err = check_ct_fused(x, 2 * n, checks, f"{x.shape[0]} frames of {n}, recording, f64")
+        bound_ms, bound_by = ct_fused_bound(x, 2 * n)
+        v = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x, 2 * n)),
+             "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x, 2 * n)),
+             "library_ms": event_ms(lambda: cufft_power_ac(x, 2 * n)), "bound_ms": bound_ms, "bound_by": bound_by,
+             "max_abs_err": err, "frames": x.shape[0], "n": n, "cluster": ct_fused.ct_fused_cluster(n, x.dtype),
+             "launches": res["paths"][n]["launches_f64"]["ct_fused"] if n in res["paths"] else None}
+        res["ct_fused"][f"n{n}_f64"] = v
+        print(f"  ct_fused, {x.shape[0]} frames of {n}, float64 (a cluster of {v['cluster']} blocks a frame): kernel "
+              f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, cuFFT {v['library_ms']:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} [{card}]")
+        del x
+    # B at the 32,768 path's frames, the rows in device memory, both dtypes.
+    res["burg"] = {}
+    n = 32768
+    for dt, launches in ((torch.float32, "launches"), (torch.float64, "launches_f64")):
+        bx = hann_windowed(frame_signal(sig64.to(dt), n, n // 4)).contiguous()
+        config = burg.launch_config(n, dt)
+        tag = f"{bx.shape[0]} frames of {n}, {'f64' if dt == torch.float64 else 'f32'}, {config}"
+        checks.true(f"burg layout [{tag}]", config.rows == "device", "(rows in device memory wanted)")
+        ck, sk = burg.burg(bx, 13)
+        cp, sp = burg.burg_plain(bx, 13)
+        err = checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
+        checks.equal(f"burg status [{tag}]", sk, sp)
+        del ck, sk, cp, sp
+        bound_cvt = burg_bound(bx, 13, cvt_s)
+        v = {"ms": event_ms(lambda: burg.burg(bx, 13)), "plain_ms": event_ms(lambda: burg.burg_plain(bx, 13), runs=3),
+             "bound_ms": burg_bound(bx, 13)[0], "bound_cvt_ms": bound_cvt[0], "bound_by": bound_cvt[1],
+             "library_ms": None, "max_abs_err": err, "frames": bx.shape[0], "n": n, "launch": config._asdict(),
+             "scratch_bytes": bx.shape[0] * 2 * config.threads * config.width * bx.element_size(),
+             "launches": res["paths"][n][launches]["burg"]}
+        res["burg"][f"n{n}_{'f64' if dt == torch.float64 else 'f32'}"] = v
+        print(f"  burg, {tag}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"operations, {v['bound_cvt_ms']:.4f} ms with the conversions (by {v['bound_by']}); "
+              f"{v['scratch_bytes']} bytes of rows in device memory [{card}]")
+        del bx
+    return res
 
 
 def main() -> None:
@@ -2881,9 +3021,9 @@ def main() -> None:
     card64 = analyze(torch.as_tensor(head, device=dev), cfg)
     cpu64 = analyze(torch.as_tensor(head), cfg)
     compare_slice("f64 card vs cpu", card64, cpu64, sr, checks)
-    print("LPC order 40 (--n-coeffs 40), float64 on the card vs the plain CPU path, first 2 s; order 127 into "
+    print("LPC order 40 (--n-coeffs 40), float64 on the card vs the plain CPU path, first 1 s; order 127 into "
           "kernel D:")
-    check_high_order_path(head, cfg, checks, dev)
+    check_high_order_path(head[: int(sr)], cfg, checks, dev)
     phase_took("phase 5, float64 parity")
 
     print("parity: float32 vs float64 on the card, whole signal:")
@@ -3373,12 +3513,23 @@ def main() -> None:
     phase_took("phase 13, bench")
 
     # --- 14. the autocorrelation backends at the bench shapes: X3, "ct", E
-    rows.append(check_autocorr_backends(xe, nfft, sig32, build_log, card, checks, run_counted, dev))
+    x3_row, e16 = check_autocorr_backends(xe, nfft, sig32, build_log, card, checks, run_counted, dev)
+    rows.append(x3_row)
     phase_took("phase 14, the autocorrelation backends")
 
     # --- 15. the examples on the card
     example_numbers = check_examples(checks, run_counted)
     phase_took("phase 15, the examples")
+
+    # --- 16. frames of 16,384 and 32,768: E over a cluster, B's rows in device memory
+    large = check_large_frames(signal, sig32, sig64, card, checks, run_counted, expect_launches, cvt_s, dev)
+    e_row["shapes"] = {"n16384_f32": {**e16, "launches": large["paths"][16384]["launches"]["ct_fused"]},
+                       **large["ct_fused"]}
+    b_row["shapes"] = large["burg"]
+    for row in rows:
+        for n in LARGE_NS:
+            row["launches_by_path"][f"large_{n}"] = large["paths"][n]["launches"][row["name"]]
+    phase_took("phase 16, frames of 16,384 and 32,768")
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check]")
     checks.raise_failures()
 
@@ -3392,7 +3543,9 @@ def main() -> None:
                       "corpus_command_s": {"first": corpus_wall, "second": corpus_warm},
                       "serve": {**serve["numbers"], "launches": serve["launches"]},
                       "sharded": {**sharded["numbers"], "launches": sharded["launches"]},
-                      "bench": bench_numbers, "examples": example_numbers, "card": card}))
+                      "bench": bench_numbers, "examples": example_numbers,
+                      "large": {str(n): {k: v for k, v in p.items() if not k.startswith("launches")}
+                                for n, p in large["paths"].items()}, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 to `burg_plain` on the CPU, and the launch rule that the wrapper mirrors.
 
 The kernel runs one block a frame: thread t holds pairs [t c, t c + c) of
-(b1, b2), in registers or, for long frames, in shared memory. Each order,
+(b1, b2), in registers or, for long frames, in shared memory or (longer
+still) in device memory. Each order,
 every thread sums its live pairs in ascending k in double (fused
 multiply-adds), a 5-step xor butterfly adds each warp's 32 partials, every
 thread adds the warps' partials in warp order and computes the reflection
@@ -128,18 +129,20 @@ def _frames(n: int, rows: int, dt, noise: float = 0.0) -> np.ndarray:
 def test_model_matches_plain_on_recording(n, dt):
     """The CLI default's, the bench's and the flagship's frames, order 13,
     with the launch the rule picks (registers at these shapes)."""
-    assert not B.launch_config(n, DTYPES[dt]).shared
+    assert B.launch_config(n, DTYPES[dt]).rows == "registers"
     _check(_frames(n, 4, dt), 13)
 
 
 @pytest.mark.parametrize("dt", [np.float32, np.float64])
 def test_model_every_layout(dt):
-    """Both launches the kernel takes for 2205-sample frames: the dtype's
-    register width and the shared layout give the plain version's
-    answer."""
+    """The three launches the kernel takes for 2205-sample frames: the
+    dtype's register width, the shared layout and the device layout (512
+    threads of 5 pairs) give the plain version's answer."""
     x = _frames(2205, 3, dt)
-    configs = [B.layout(2205, DTYPES[dt], shared) for shared in (False, True)]
-    assert [(c.shared, c.width) for c in configs] == [(False, 35 if dt == np.float32 else 23), (True, 63)]
+    configs = [B.layout(2205, DTYPES[dt], rows) for rows in ("registers", "shared", "device")]
+    assert [(c.rows, c.threads, c.width) for c in configs] == [
+        ("registers", 64 if dt == np.float32 else 96, 35 if dt == np.float32 else 23), ("shared", 64, 63),
+        ("device", 512, 5)]
     for config in configs:
         _check(x, 13, config)
 
@@ -167,8 +170,21 @@ def test_model_at_width_edges(dt):
 def test_model_past_the_switch(dt):
     """The first n whose rows go to shared memory, and the n before it."""
     t = DTYPES[dt]
-    switch = next(n for n in range(7000, 20000) if B.launch_config(n, t).shared)
-    assert not B.launch_config(switch - 1, t).shared
+    switch = next(n for n in range(7000, 20000) if B.launch_config(n, t).rows == "shared")
+    assert B.launch_config(switch - 1, t).rows == "registers"
+    for n in (switch - 1, switch):
+        _check(_frames(n, 2, dt, noise=0.1), 13)
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_model_past_the_device_switch(dt):
+    """The first n whose rows go to device memory, and the n before it (the
+    shared layout's largest): 512 threads of 57 pairs in float32, 29 in
+    float64, the last warp partly live."""
+    t = DTYPES[dt]
+    switch = 28968 if dt == np.float32 else 14498
+    assert B.launch_config(switch - 1, t).rows == "shared"
+    assert B.launch_config(switch, t) == ("device", 512, 57 if dt == np.float32 else 29)
     for n in (switch - 1, switch):
         _check(_frames(n, 2, dt, noise=0.1), 13)
 
@@ -202,24 +218,39 @@ def test_model_order_above_frame_status(n, order):
 
 
 def test_launch_rule():
-    """A pure function of (n, dtype): every launch holds n - 1 pairs in
-    whole warps within the block's threads and shared memory; the path
-    shapes take registers, longer frames up to 512 threads of the dtype's
-    width, then shared memory; every n the kernel it replaced took still
-    launches."""
-    for dt, width, largest in ((torch.float32, 35, 28927), (torch.float64, 23, 14431)):
+    """A pure function of (n, dtype) that launches every n from 2 to 2^20:
+    every launch holds n - 1 pairs within the block's threads and shared
+    memory; the path shapes take registers, longer frames up to 512
+    threads of the dtype's width, then shared memory, in whole warps, past
+    the largest frame the kernel it replaced took (each layout keeps the
+    range it had: up to 28,967 float32 and 14,497 float64 samples), then
+    512 threads with the rows in device memory."""
+    for dt, width, largest in ((torch.float32, 35, 28967), (torch.float64, 23, 14497)):
         switch = 512 * width + 2  # the first n whose pairs exceed the registers
-        for n in [*range(2, 300), 2047, 2048, 2205, 4096, switch - 2, switch - 1, switch, switch + 1, largest]:
+        seen = {}
+        for n in range(2, (1 << 20) + 1):
             c = B.launch_config(n, dt)
-            assert c == B.launch_config(n, dt) and c == B.layout(n, dt, c.shared)
-            assert c.threads % 32 == 0 and c.threads * c.width >= n - 1 > c.threads * c.width - 32 * c.width
+            seen.setdefault(c.rows, [n, n])[1] = n
+            assert c.threads * c.width >= n - 1
+        assert seen == {"registers": [2, switch - 1], "shared": [switch, largest], "device": [largest + 1, 1 << 20]}
+        for n in [*range(2, 300), 2047, 2048, 2205, 4096, switch - 2, switch - 1, switch, switch + 1, largest,
+                  largest + 1, 28927, 14431, 29100, 14600, 32768, 65536, (1 << 20) - 1, 1 << 20]:
+            c = B.launch_config(n, dt)
+            assert c == B.launch_config(n, dt) and c == B.layout(n, dt, c.rows)
             assert c.threads <= B._MAX_THREADS and B.smem_bytes(n, dt, c) <= B._SMEM_LIMIT
-            assert c.shared == (n >= switch) and c.width == (63 if c.shared else width)
-    # The kernel it replaced took 2 n values and its static shared memory (1,032
-    # bytes in float, 1,548 in double) within the 232,448 a block may take.
-    for n, dt in ((29100, torch.float32), (14600, torch.float64)):
-        with pytest.raises(ValueError, match="shared memory"):
-            B.launch_config(n, dt)
+            if c.rows == "device":
+                assert c.threads == 512 and c.threads * c.width >= n - 1 > c.threads * (c.width - 1)
+                assert B.smem_bytes(n, dt, c) == 4 * 16 * 8 + 4 * 16 * dt.itemsize  # the slots alone
+            else:
+                assert c.threads % 32 == 0 and c.threads * c.width >= n - 1 > c.threads * c.width - 32 * c.width
+                assert c.width == (63 if c.rows == "shared" else width)
+    # The kernel B replaced took 2 n values and its static shared memory
+    # (1,032 bytes in float, 1,548 in double) within the 232,448 a block may
+    # take: the longest frames it took are the shared layout's longest, and
+    # the next lengths take the device layout.
+    assert B.launch_config(29100, torch.float32) == ("device", 512, 57)
+    assert B.launch_config(14600, torch.float64) == ("device", 512, 29)
+    assert B.layout(29100, torch.float32, "shared") is None and B.layout(14600, torch.float64, "shared") is None
     with pytest.raises(TypeError):
         B.launch_config(2205, torch.float16)
 
@@ -237,20 +268,24 @@ def test_constants_mirror_cuda_source():
     assert B._MAX_THREADS == const("kMaxThreads")
     assert const("kSmemLimit") == B._SMEM_LIMIT
     assert "return round16(rows * sizeof(T)) + 4 * W * sizeof(double) + 4 * W * sizeof(T);" in src
-    assert "shared ? 2 * static_cast<size_t>(N - 1) : static_cast<size_t>(N)" in src
+    assert ("where == kRowsShared ? 2 * static_cast<size_t>(N - 1)\n"
+            "                      : where == kRowsRegisters ? static_cast<size_t>(N) : 0;") in src
+    assert B.ROWS == {name: const(f"kRows{name.capitalize()}") for name in ("registers", "shared", "device")}
 
 
 def test_chip_smoke_long_frames_take_their_layout():
     """chip_smoke.py's BURG_LARGE cases name the layout the rule gives them,
     and cover each layout in each dtype, the register layout at its largest
-    frame included."""
+    frame included, and the device layout at 32,768 and 65,536 float32 and
+    16,384 and 32,768 float64 samples."""
     from chip_smoke import BURG_LARGE
 
-    for dname, n, _, shared in BURG_LARGE:
-        assert B.launch_config(n, getattr(torch, dname)).shared == shared
-    for dname, width in (("float32", 35), ("float64", 23)):
-        cases = {(n, shared) for d, n, _, shared in BURG_LARGE if d == dname}
-        assert (512 * width + 1, False) in cases and any(shared for _, shared in cases)
+    for dname, n, _, rows in BURG_LARGE:
+        assert B.launch_config(n, getattr(torch, dname)).rows == rows
+    for dname, width, device in (("float32", 35, {32768, 65536}), ("float64", 23, {16384, 32768})):
+        cases = {(n, rows) for d, n, _, rows in BURG_LARGE if d == dname}
+        assert (512 * width + 1, "registers") in cases and any(rows == "shared" for _, rows in cases)
+        assert {n for n, rows in cases if rows == "device"} == device
 
 
 @pytest.mark.parametrize("order", [40, 127])

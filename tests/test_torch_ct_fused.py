@@ -91,11 +91,14 @@ def test_autocorrelate_ct_fused_matches_jax(n, nc):
     (4096, 8192, torch.float32, True),
     (1024, 2048, torch.float64, True),
     (2048, 4096, torch.float64, True),
-    (4096, 8192, torch.float64, True),  # float64's largest (MAX_N)
+    (4096, 8192, torch.float64, True),  # float64's largest frame of one block
     (128, 256, torch.float64, True),  # the smallest frame
-    (8192, 16384, torch.float32, True),  # float32's largest (MAX_N)
-    (8192, 16384, torch.float64, False),  # above float64's largest
-    (16384, 32768, torch.float32, False),  # above float32's largest
+    (8192, 16384, torch.float32, True),  # float32's largest frame of one block
+    (8192, 16384, torch.float64, True),  # a cluster of 2 blocks
+    (16384, 32768, torch.float32, True),  # the largest (MAX_N), a cluster of 2 blocks
+    (16384, 32768, torch.float64, True),  # the largest (MAX_N), a cluster of 4 blocks
+    (32768, 65536, torch.float32, False),  # above the largest, as voxtpu's gate
+    (32768, 65536, torch.float64, False),
     (64, 128, torch.float32, False),  # below 128
     (96, 192, torch.float64, False),  # not a power of two
     (1536, 3072, torch.float32, False),  # a multiple of 128, not a power of two
@@ -110,26 +113,35 @@ def test_shape_gate(n, nfft, dtype, ok):
 def test_shared_memory_sizer():
     """One exchange buffer of n complex values a frame: 32 KB in float32 and
     64 KB in float64 at the bench frame of 4096; frames under 2048 points
-    share a block of 128 threads (16 frames of 128)."""
+    share a block of 128 threads (16 frames of 128); a cluster's block
+    holds its n / cluster points: 64 KB at 16,384 in float32 (2 blocks) and
+    at 8,192 and 16,384 in float64 (2 and 4 blocks)."""
     assert ct_fused.ct_fused_smem_bytes(4096, torch.float32) == 32768
     assert ct_fused.ct_fused_smem_bytes(4096, torch.float64) == 65536
     assert ct_fused.ct_fused_smem_bytes(8192, torch.float32) == 65536
     assert ct_fused.ct_fused_smem_bytes(128, torch.float32) == 16 * 128 * 8
+    assert ct_fused.ct_fused_smem_bytes(16384, torch.float32) == 65536
+    assert ct_fused.ct_fused_smem_bytes(8192, torch.float64) == 65536
+    assert ct_fused.ct_fused_smem_bytes(16384, torch.float64) == 65536
+    assert [ct_fused.ct_fused_cluster(n, torch.float32) for n in (4096, 8192, 16384)] == [1, 1, 2]
+    assert [ct_fused.ct_fused_cluster(n, torch.float64) for n in (4096, 8192, 16384)] == [1, 2, 4]
     assert ct_fused.SMEM_LIMIT == 227 * 1024
 
 
-@pytest.mark.parametrize("dtype, largest", [(torch.float32, 8192), (torch.float64, 4096)])
+@pytest.mark.parametrize("dtype, largest", [(torch.float32, 16384), (torch.float64, 16384)])
 def test_gate_admits_the_same_frame_lengths(dtype, largest):
-    """The gate admits exactly the frame lengths the radix-2 kernel took,
-    128 to 8192 in float32 and to 4096 in float64, and every block of them
-    fits the card's shared memory."""
+    """The gate admits exactly the power-of-two frame lengths voxtpu's fused
+    gate takes, 128 to 16,384 in either dtype, every block of them fits the
+    card's shared memory, and a cluster has at most 4 blocks."""
     admitted = [n for n in range(1, 1 << 16) if ct_fused.ct_fused_supported(n, 2 * n, dtype)]
     assert admitted == [1 << k for k in range(7, largest.bit_length())]
     assert all(ct_fused.ct_fused_smem_bytes(n, dtype) <= ct_fused.SMEM_LIMIT for n in admitted)
+    assert all(ct_fused.ct_fused_cluster(n, dtype) in (1, 2, 4) for n in admitted)
 
 
 def test_constants_mirror_the_cuda_source():
-    """The wrapper's points a thread, block floor and per-dtype ceilings are
+    """The wrapper's points a thread, block floor, ceiling and per-dtype
+    largest frame of one block (above which a frame takes a cluster) are
     csrc/ct_fused.cu's."""
     src = CU.read_text()
 
@@ -138,8 +150,9 @@ def test_constants_mirror_the_cuda_source():
 
     assert const("kPoints") == ct_fused._POINTS
     assert const("kMinBlockThreads") == ct_fused._MIN_BLOCK_THREADS
-    assert 1 << const("kMaxLog2F32") == ct_fused.MAX_N[torch.float32]
-    assert 1 << const("kMaxLog2F64") == ct_fused.MAX_N[torch.float64]
+    assert 1 << const("kMaxLog2") == ct_fused.MAX_N[torch.float32] == ct_fused.MAX_N[torch.float64]
+    assert 1 << const("kBlockLog2F32") == ct_fused._BLOCK_N[torch.float32]
+    assert 1 << const("kBlockLog2F64") == ct_fused._BLOCK_N[torch.float64]
 
 
 @pytest.mark.parametrize("n", [96, 300, 2205])
@@ -247,14 +260,16 @@ def _stockham_pass(data, R, Ns, tw, inverse, zero_upper=False, half_out=False):
     """exchange_pass(): butterflies j < n/R read data[j + r n/R]; for Ns > 1,
     input r is turned by w^{r s}, s = (j mod Ns) N / (Ns R), from the table's
     w^s, w^2s, w^4s, w^8s and their products (twiddle()); the R-point DFT;
-    output r lands at (j - j mod Ns) R + j mod Ns + r Ns."""
+    output r lands at (j - j mod Ns) R + j mod Ns + r Ns. The table (len(tw)
+    = nt values) may belong to a longer transform than this one's n points
+    (a cluster's block): N = 2 nt."""
     B, n = data.shape
     span = n // R
     j = np.arange(span)
     v = data[:, j[:, None] + span * np.arange(R)[None, :]].copy()
     jm = j % Ns
     if Ns > 1:
-        s = jm * (2 * n // (Ns * R))
+        s = jm * (2 * len(tw) // (Ns * R))
         p = {}
         for lb in range(R.bit_length() - 1):
             w = tw[s << lb]
@@ -272,14 +287,83 @@ def _stockham_pass(data, R, Ns, tw, inverse, zero_upper=False, half_out=False):
     return out
 
 
-def _model_ct_fused(x):
+def _split_power(A, Bc, tw, rdt):
+    """The split and the power for each k: A = Z[k], Bc = conj Z[n-k], tw =
+    w^k; (P[k], P[n-k]) = (|E - U|^2, |E + U|^2)."""
+    E, O = (A + Bc) * rdt(0.5), (A - Bc) * rdt(0.5)
+    U = 1j * (tw * O)
+    d1, d2 = E - U, E + U
+    return d1.real * d1.real + d1.imag * d1.imag, d2.real * d2.real + d2.imag * d2.imag
+
+
+def _tw_at(tw, e):
+    """tw_at(): w^e for 0 <= e < 2n from the table of w^k, k < n."""
+    n = len(tw)
+    return np.where(e >= n, -tw[e % n], tw[e % n])
+
+
+def _model_ct_fused_cluster(x, C, tw, cdt):
+    """ct_fused_cluster_kernel's steps over a cluster of C blocks: block c's
+    m-point transform of y_c (pre-twiddled, and for C = 4 with the upper
+    quarter folded in), the split of class c against class (C - c) mod C,
+    the m-point inverse of W's class c, and the outputs t < n/2 as
+    sum_c' w_n^{-c' t} V_c'[t mod m]."""
+    B, n = x.shape
+    rdt = x.dtype.type
+    m = n // C
+    plan = _radix_plan(m)
+    z = (x[:, 0::2] + 1j * x[:, 1::2]).astype(cdt)  # the n/2 nonzero points
+    j = np.arange(m)
+    Z = []
+    for c in range(C):
+        y = z[:, :m].copy()
+        if C == 4:
+            b = z[:, m : 2 * m]
+            y = y + [b, b.imag - 1j * b.real, -b, -b.imag + 1j * b.real][c].astype(cdt)  # (-i)^c b
+        if c:
+            y = y * _tw_at(tw, 2 * j * c)
+        Ns = 1
+        for R in plan:
+            y = _stockham_pass(y, R, Ns, tw, False)
+            Ns *= R
+        Z.append(y)
+    half = np.zeros((B, n // 2 + 1), x.dtype)
+    V = []
+    q = np.arange(m)
+    for c in range(C):
+        k = C * q + c
+        qp = (m - q) % m if c == 0 else m - 1 - q
+        pk, pn = _split_power(Z[c][:, q], np.conj(Z[(C - c) % C][:, qp]), tw[k], rdt)
+        if c % 2 == 0:
+            half[:, k // 2] = pk
+        if c == 0:
+            half[:, n // 2] = pn[:, 0]
+        S, D = pk + pn, pk - pn
+        W = ((S + tw[k].imag * D) + 1j * (tw[k].real * D)).astype(cdt)
+        Ns = 1
+        for R in plan:
+            W = _stockham_pass(W, R, Ns, tw, True)
+            Ns *= R
+        V.append(W)
+    to = np.arange(n // 2)
+    y = V[0][:, to % m]
+    for c in range(1, C):
+        y = y + V[c][:, to % m] * np.conj(_tw_at(tw, (2 * c * to) % (2 * n)))
+    w = y * rdt(1.0 / (2 * n))
+    return half, np.stack([w.real, w.imag], axis=-1).reshape(B, n)
+
+
+def _model_ct_fused(x, cluster=1):
     """(B, n) real frames (float32 or float64, computed in that type) ->
-    (half (B, n/2+1), ac (B, n)), by the kernel's steps."""
+    (half (B, n/2+1), ac (B, n)), by the kernel's steps; cluster: the blocks
+    a frame takes (ct_fused_cluster), 1 for the single-block kernel."""
     B, n = x.shape
     rdt = x.dtype.type
     cdt = np.complex64 if rdt is np.float32 else np.complex128
     ang = 2.0 * np.pi * np.arange(n) / (2 * n)
     tw = (np.cos(ang).astype(rdt) + 1j * (-np.sin(ang)).astype(rdt)).astype(cdt)  # ops/ct_fused.py's table
+    if cluster > 1:
+        return _model_ct_fused_cluster(x, cluster, tw, cdt)
     plan = _radix_plan(n)
     # Forward: z[m] = x[2m] + i x[2m+1], zero from n/2 on.
     z = np.zeros((B, n), cdt)
@@ -290,12 +374,7 @@ def _model_ct_fused(x):
         Ns *= R
     # The split: P[k] = |E - U|^2 and P[n-k] = |E + U|^2 for each k.
     k = np.arange(n)
-    A, Bc = z[:, k], np.conj(z[:, (n - k) % n])
-    E, O = (A + Bc) * rdt(0.5), (A - Bc) * rdt(0.5)
-    U = 1j * (tw * O)
-    d1, d2 = E - U, E + U
-    pk = d1.real * d1.real + d1.imag * d1.imag
-    pn = d2.real * d2.real + d2.imag * d2.imag
+    pk, pn = _split_power(z[:, k], np.conj(z[:, (n - k) % n]), tw, rdt)
     half = np.concatenate([pk[:, 0::2], pn[:, :1]], axis=1)  # P[2k], and P[n] from k = 0
     # The inverse packing W[k] = (P[k] + P[n-k]) + i w^-k (P[k] - P[n-k]).
     S, D = pk + pn, pk - pn
@@ -341,6 +420,42 @@ def test_kernel_model_matches_plain_f32(n):
     tolerance for the kernel."""
     x = _frames(n, 4, seed=9).astype(np.float32)
     half, ac = _model_ct_fused(x)
+    assert half.dtype == np.float32 and ac.dtype == np.float32
+    hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
+    assert _frame_scaled_err(half, hp.numpy()) <= CT_FUSED_F32_TOL
+    assert _frame_scaled_err(ac, ap.numpy()) <= CT_FUSED_F32_TOL
+
+
+def _fft_reference(x):
+    """np.fft's (half, lags) of (B, n) frames, in float64."""
+    n = x.shape[-1]
+    p = np.abs(np.fft.rfft(x.astype(np.float64), 2 * n)) ** 2
+    return p[:, ::2], np.fft.irfft(p, 2 * n)[:, :n]
+
+
+@pytest.mark.parametrize("n, cluster", [(256, 2), (256, 4), (2048, 4), (8192, 2), (16384, 2), (16384, 4)])
+def test_cluster_model_matches_fft_f64(n, cluster):
+    """The cluster's split (csrc/ct_fused.cu's ct_fused_cluster_kernel) in
+    float64 against np.fft, within 1e-12 of each frame's largest value:
+    the kernel's clusters (16,384 float32 over 2 blocks, 8,192 and 16,384
+    float64 over 2 and 4) and both cluster sizes at small n, where every
+    class holds few points."""
+    x = _frames(n, 3, seed=11)
+    half, ac = _model_ct_fused(x, cluster)
+    hf, af = _fft_reference(x)
+    assert half.shape == hf.shape and ac.shape == af.shape
+    assert _frame_scaled_err(half, hf) <= 1e-12
+    assert _frame_scaled_err(ac, af) <= 1e-12
+
+
+def test_cluster_model_matches_plain_f32():
+    """Float32 arithmetic throughout at 16,384 over 2 blocks, float32's
+    cluster: within CT_FUSED_F32_TOL of each frame's largest value of the
+    plain version."""
+    n = 16384
+    assert ct_fused.ct_fused_cluster(n, torch.float32) == 2
+    x = _frames(n, 3, seed=9).astype(np.float32)
+    half, ac = _model_ct_fused(x, 2)
     assert half.dtype == np.float32 and ac.dtype == np.float32
     hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
     assert _frame_scaled_err(half, hp.numpy()) <= CT_FUSED_F32_TOL

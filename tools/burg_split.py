@@ -13,11 +13,12 @@ its 126 tiles of the bundled recording) and dtype it builds kernel B's
 arguments as the path passes them (the Hann-windowed frames and the Burg
 order, as `chip_smoke.kernel_inputs` does) and times `burg` with CUDA
 events (`chip_smoke.event_ms`, mean of --runs). With --layouts, and where
-the checkout's `ops.burg` has `layout`, it also launches the kernel with
-the other layout where that fits at those shapes (the rows in shared
-memory where the rule picks registers), beside the one `launch_config`
-picks. --lengths also times B, order 13, on 2,048 noisy frames of each
-length (`chip_smoke.burg_large_frames`), for frames longer than the paths'.
+the checkout's `ops.burg` has `ROWS` (its three layouts), it also launches
+the kernel (uncounted, `burg._launch`) with the other layouts where they
+fit at those shapes (the rows in shared or in device memory where the
+rule picks registers), beside the one `launch_config` picks. --lengths
+also times B, order 13, on 2,048 noisy frames of each length
+(`chip_smoke.burg_large_frames`), for frames longer than the paths'.
 
 The rates (skipped with --no-rates; `chip_smoke.probe_rates`): float ->
 double conversions, float64 fused multiply-adds, 32-bit shared-memory
@@ -46,18 +47,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def launch(kernels, x, p: int, config):
-    """Kernel B on (B, N) frames x at order p with another launch than the
-    wrapper's, through the kernel library directly."""
-    import torch
-
-    B, N = x.shape
-    coef = torch.empty((B, p), dtype=x.dtype, device=x.device)
-    status = torch.empty((B,), dtype=torch.int32, device=x.device)
-    kernels.launch("vt_burg", x.dtype, x, coef, status, B, N, p, config.threads, config.width, int(config.shared))
-    return coef, status
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=ROOT, help="checkout whose voxtpu_torch is timed")
@@ -66,7 +55,7 @@ def main() -> None:
     ap.add_argument("--lengths", default="", help="frame lengths to time beside the paths' (comma-separated)")
     ap.add_argument("--runs", type=int, default=5, help="timed launches after a warm-up")
     ap.add_argument("--no-rates", action="store_true", help="skip the rate probes")
-    ap.add_argument("--layouts", action="store_true", help="also time the other layout where it fits")
+    ap.add_argument("--layouts", action="store_true", help="also time the other layouts where they fit")
     args = ap.parse_args()
     import torch
 
@@ -87,7 +76,7 @@ def main() -> None:
     kernels.library()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    with_layouts = args.layouts and hasattr(burg, "layout")
+    with_layouts = args.layouts and hasattr(burg, "ROWS")
     print(f"{card}; voxtpu_torch from {root}; layouts: {with_layouts}", flush=True)
     result = {"card": card, "root": str(root), "rows": []}
     if not args.no_rates:
@@ -113,10 +102,10 @@ def main() -> None:
         chosen = burg.launch_config(N, dt) if with_layouts else None
         configs = [chosen]
         if with_layouts:
-            other = burg.layout(N, dt, not chosen.shared)
-            configs += [other] if other is not None else []
+            others = (burg.layout(N, dt, rows) for rows in burg.ROWS if rows != chosen.rows)
+            configs += [c for c in others if c is not None]
         for config in configs:
-            ms = cs.event_ms(lambda: burg.burg(x, p) if config is chosen else launch(kernels, x, p, config),
+            ms = cs.event_ms(lambda: burg.burg(x, p) if config is chosen else burg._launch(x, p, config),
                              runs=args.runs)
             row = {"path": path, "dtype": dname, "ms": ms, "frames": B, "n": N, "order": p}
             text = ""

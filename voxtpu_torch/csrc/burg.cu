@@ -69,7 +69,23 @@
 // Longer frames keep the rows in shared memory, thread t's pairs at
 // [t c, t c + c) with the odd width kSharedWidth, and run the same steps:
 // one fused pass and one barrier an order. Its shared memory is 2 (n - 1)
-// values and the slots, which reach every n the previous kernel took.
+// values and the slots: up to 28,967 float and 14,497 double samples.
+//
+// Frames longer than that keep the rows in device memory (the device
+// layout): kMaxThreads threads, thread t's pairs [t c, t c + c) for the c
+// that holds them (a runtime width), in a scratch buffer the wrapper
+// allocates, 2 x threads x c values a frame. Pair t c + j lies at [j][b1 or
+// b2][t], so a warp's loads and stores of one j are 32 neighbouring values,
+// and a thread only ever touches its own pairs (it reads them straight from
+// the frame at the start): the steps, the one fused pass and the one
+// barrier an order are the others'. Each order reads and writes the rows
+// once: 512 KB a frame of 32,768 floats. At 56 registers (63 in double)
+// two blocks share an SM, so the frames in flight hold about 67 MB of rows,
+// more than the 50 MB L2, and the passes wait on memory: 1,918 frames of
+// 32,768 floats take 5.8 ms against 0.19 ms of operations (chip_smoke.py,
+// phase 16, NVIDIA H100 80GB HBM3, 700 W). A cluster holding the rows in
+// distributed shared memory would stop at some n again (16 blocks' 227 KB)
+// and still need this layout above it; this one takes every n.
 #include <type_traits>
 
 #include "common.cuh"
@@ -84,6 +100,10 @@ constexpr int kStatusLpcDenumNonpos = 1;  // voxtpu_torch.errors.LPC_DENUM_NONPO
 constexpr int kWidthF32 = 35;
 constexpr int kWidthF64 = 23;
 constexpr int kSharedWidth = 63;
+// Where the rows live: burg_kernel's kRows and the launcher's `rows`.
+constexpr int kRowsRegisters = 0;
+constexpr int kRowsShared = 1;
+constexpr int kRowsDevice = 2;
 // The most threads a block of either layout takes. Every instantiation is
 // held to 128 registers a thread (65,536 / 512), so that 8 blocks of 64
 // threads (5 of 96) fit on an SM at the path shapes: the compiler otherwise
@@ -96,12 +116,13 @@ constexpr int kSmemLimit = 232448;
 __host__ __device__ constexpr size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 
 // Bytes of dynamic shared memory: the rows (the staged frame, n values, in
-// the register layout; b1 and b2, n - 1 values each, in the shared one),
-// rounded to 16 bytes, then the slots: (num, den) in double and the first
-// pair (b1, b2) of each warp, for two parities.
+// the register layout; b1 and b2, n - 1 values each, in the shared one;
+// none in the device one), rounded to 16 bytes, then the slots: (num, den)
+// in double and the first pair (b1, b2) of each warp, for two parities.
 template <typename T>
-__host__ __device__ size_t smem_bytes(int N, int threads, bool shared) {
-  const size_t rows = shared ? 2 * static_cast<size_t>(N - 1) : static_cast<size_t>(N);
+__host__ __device__ size_t smem_bytes(int N, int threads, int where) {
+  const size_t rows = where == kRowsShared ? 2 * static_cast<size_t>(N - 1)
+                      : where == kRowsRegisters ? static_cast<size_t>(N) : 0;
   const size_t W = static_cast<size_t>(threads) / 32;
   return round16(rows * sizeof(T)) + 4 * W * sizeof(double) + 4 * W * sizeof(T);
 }
@@ -135,6 +156,24 @@ struct SharedRows {
   }
 };
 
+// Thread t's pairs in device memory, one column of the frame's scratch:
+// pair j's b1 at col[2 j kMaxThreads] and its b2 kMaxThreads further on;
+// `count` of them lie inside the frame.
+template <typename T>
+struct DeviceRows {
+  T* col;
+  int count;
+  __device__ __forceinline__ bool has(int j) const { return j < count; }
+  __device__ __forceinline__ T get1(int j) const { return col[static_cast<size_t>(j) * 2 * kMaxThreads]; }
+  __device__ __forceinline__ T get2(int j) const {
+    return col[static_cast<size_t>(j) * 2 * kMaxThreads + kMaxThreads];
+  }
+  __device__ __forceinline__ void set(int j, T u, T v) {
+    col[static_cast<size_t>(j) * 2 * kMaxThreads] = u;
+    col[static_cast<size_t>(j) * 2 * kMaxThreads + kMaxThreads] = v;
+  }
+};
+
 // Adds a pair to a thread's partial sums in double: num = fma(u, v, num),
 // den = fma(u, u, den), den = fma(v, v, den). In the masked form a pair
 // that is not live adds exact zeros instead (u = 0, v = -0: num + (0 x -0)
@@ -150,13 +189,14 @@ __device__ __forceinline__ void accumulate(T a, T b, bool live, double& num, dou
 }
 
 // Order 1's partial sums over the first `live` of this thread's pairs. The
-// unmasked form is for warps whose pairs are all live.
+// unmasked form is for warps whose pairs are all live. C: the width, or 0
+// for the runtime width c (the device layout).
 template <bool kMasked, int C, int kUnroll, typename Rows>
-__device__ __forceinline__ void first_sums(const Rows& rows, int live, double& num, double& den) {
+__device__ __forceinline__ void first_sums(const Rows& rows, int live, double& num, double& den, int c) {
   num = 0.0;
   den = 0.0;
 #pragma unroll(kUnroll)
-  for (int j = 0; j < C; ++j) {
+  for (int j = 0; j < (C > 0 ? C : c); ++j) {
     if (!kMasked || rows.has(j)) accumulate<kMasked>(rows.get1(j), rows.get2(j), j < live, num, den);
   }
 }
@@ -166,14 +206,14 @@ __device__ __forceinline__ void first_sums(const Rows& rows, int live, double& n
 // same pass the next order's partial sums over the first `live` of them.
 template <bool kMasked, int C, int kUnroll, typename T, typename Rows>
 __device__ __forceinline__ void update(Rows& rows, T ci, T u, T v, T n1, T n2, int live, double& num,
-                                       double& den) {
+                                       double& den, int c) {
   num = 0.0;
   den = 0.0;
 #pragma unroll(kUnroll)
-  for (int j = 0; j < C; ++j) {
+  for (int j = 0; j < (C > 0 ? C : c); ++j) {
     T nu = n1;
     T nv = n2;
-    if (j + 1 < C) {
+    if (j + 1 < (C > 0 ? C : c)) {
       const bool in = !kMasked || rows.has(j + 1);
       nu = in ? rows.get1(j + 1) : T(0);
       nv = in ? rows.get2(j + 1) : T(0);
@@ -187,27 +227,42 @@ __device__ __forceinline__ void update(Rows& rows, T ci, T u, T v, T n1, T n2, i
   }
 }
 
-template <typename T, int C, bool kShared>
+// kRows: kRowsRegisters, kRowsShared or kRowsDevice. C: the width, 0 for the
+// device layout, whose width is `width` (the rows then in `scratch`, 2 x
+// kMaxThreads x width values a frame, launched with kMaxThreads threads).
+template <typename T, int C, int kRows>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    burg_kernel(const T* __restrict__ x, T* __restrict__ coef_out, int* __restrict__ status_out, int N, int P) {
-  // Register rows need every index fixed at compile time; shared rows do not.
-  constexpr int kUnroll = kShared ? 4 : C;
+    burg_kernel(const T* __restrict__ x, T* __restrict__ coef_out, int* __restrict__ status_out,
+                T* __restrict__ scratch, int N, int P, int width) {
+  constexpr bool kShared = kRows == kRowsShared;
+  constexpr bool kDevice = kRows == kRowsDevice;
+  // Register rows need every index fixed at compile time; the others do not.
+  constexpr int kUnroll = kRows == kRowsRegisters ? C : 4;
+  const int c = C > 0 ? C : width;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = blockDim.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int npairs = N - 1;
-  const int k0 = threadIdx.x * C;
+  const int k0 = threadIdx.x * c;
   // A warp's pairs end at warp_end: its threads' pairs are all live while
   // the live count is at least that.
-  const int warp_end = (warp + 1) * 32 * C;
+  const int warp_end = (warp + 1) * 32 * c;
   const T* xr = x + static_cast<long>(blockIdx.x) * N;
-  double2* part = reinterpret_cast<double2*>(smem_raw + round16((kShared ? 2 * npairs : N) * sizeof(T)));
+  double2* part = reinterpret_cast<double2*>(
+      smem_raw + round16((kShared ? 2 * npairs : kDevice ? 0 : N) * sizeof(T)));
   T* first = reinterpret_cast<T*>(part + 2 * W);  // [parity][b1, b2][warp]
 
-  using Rows = typename std::conditional<kShared, SharedRows<T>, RegisterRows<T, C>>::type;
+  using Rows = typename std::conditional<
+      kShared, SharedRows<T>, typename std::conditional<kDevice, DeviceRows<T>, RegisterRows<T, C>>::type>::type;
   Rows rows;
-  if constexpr (kShared) {
+  if constexpr (kDevice) {
+    // This thread's column of the frame's rows: its pairs straight from the
+    // frame, which no other thread reads or writes, so no barrier follows.
+    rows.col = scratch + static_cast<size_t>(2 * kMaxThreads) * c * blockIdx.x + threadIdx.x;
+    rows.count = max(0, min(c, npairs - k0));
+    for (int j = 0; j < rows.count; ++j) rows.set(j, __ldg(xr + k0 + j), __ldg(xr + k0 + j + 1));
+  } else if constexpr (kShared) {
     T* s1 = reinterpret_cast<T*>(smem_raw);
     T* s2 = s1 + npairs;
 #pragma unroll 8
@@ -246,9 +301,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   double num;
   double den;
   if (warp_end <= npairs) {
-    first_sums<false, C, kUnroll>(rows, C, num, den);
+    first_sums<false, C, kUnroll>(rows, c, num, den, c);
   } else {
-    first_sums<true, C, kUnroll>(rows, npairs - k0, num, den);
+    first_sums<true, C, kUnroll>(rows, npairs - k0, num, den, c);
   }
 
   T a[kCoefRegs] = {};  // warp 0: coefficient `lane + 32 k` in a[k]
@@ -310,9 +365,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     const int m = N - i - 1;  // the next order's live pairs
     if (warp_end <= m) {
-      update<false, C, kUnroll>(rows, ci, own1, own2, n1, n2, C, num, den);
+      update<false, C, kUnroll>(rows, ci, own1, own2, n1, n2, c, num, den, c);
     } else {
-      update<true, C, kUnroll>(rows, ci, own1, own2, n1, n2, m - k0, num, den);
+      update<true, C, kUnroll>(rows, ci, own1, own2, n1, n2, m - k0, num, den, c);
     }
   }
 
@@ -326,48 +381,53 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-template <typename T, int C, bool kShared>
-int launch_with(const void* x, void* coef, void* status, int B, int N, int P, int threads, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(N, threads, kShared);
+template <typename T, int C, int kRows>
+int launch_with(const void* x, void* coef, void* status, void* scratch, int B, int N, int P, int threads, int width,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(N, threads, kRows);
   if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
-    const auto kernel = burg_kernel<T, C, kShared>;
+    const auto kernel = burg_kernel<T, C, kRows>;
     if (smem > 48 * 1024) {
       const cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     kernel<<<B, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(coef), static_cast<int*>(status),
-                                         N, P);
+                                         static_cast<T*>(scratch), N, P, width);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // threads: a multiple of 32, at most kMaxThreads, with threads x width >=
-// n - 1; width: the dtype's register width (shared == 0) or kSharedWidth
-// (shared == 1).
+// n - 1; rows: kRowsRegisters (width: the dtype's register width),
+// kRowsShared (kSharedWidth) or kRowsDevice (kMaxThreads threads, any
+// width; scratch: B x 2 x threads x width values, else unused).
 template <typename T>
-int launch(const void* x, void* coef, void* status, int B, int N, int P, int threads, int width, int shared,
-           void* stream) {
+int launch(const void* x, void* coef, void* status, void* scratch, int B, int N, int P, int threads, int width,
+           int rows, void* stream) {
   if (P < 1 || P > kMaxOrder || N < 2 || threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
-      static_cast<long>(threads) * width < N - 1)
+      width < 1 || static_cast<long>(threads) * width < N - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int kWidth = sizeof(T) == 4 ? kWidthF32 : kWidthF64;
-  if (shared && width == kSharedWidth)
-    return launch_with<T, kSharedWidth, true>(x, coef, status, B, N, P, threads, st);
-  if (!shared && width == kWidth) return launch_with<T, kWidth, false>(x, coef, status, B, N, P, threads, st);
+  if (rows == kRowsShared && width == kSharedWidth)
+    return launch_with<T, kSharedWidth, kRowsShared>(x, coef, status, scratch, B, N, P, threads, width, st);
+  if (rows == kRowsRegisters && width == kWidth)
+    return launch_with<T, kWidth, kRowsRegisters>(x, coef, status, scratch, B, N, P, threads, width, st);
+  if (rows == kRowsDevice && threads == kMaxThreads && (scratch != nullptr || B == 0))
+    return launch_with<T, 0, kRowsDevice>(x, coef, status, scratch, B, N, P, threads, width, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-VT_EXPORT int vt_burg_f32(const void* x, void* coef, void* status, int B, int N, int P, int threads, int width,
-                          int shared, void* stream) {
-  return launch<float>(x, coef, status, B, N, P, threads, width, shared, stream);
+VT_EXPORT int vt_burg_f32(const void* x, void* coef, void* status, void* scratch, int B, int N, int P, int threads,
+                          int width, int rows, void* stream) {
+  return launch<float>(x, coef, status, scratch, B, N, P, threads, width, rows, stream);
 }
 
-VT_EXPORT int vt_burg_f64(const void* x, void* coef, void* status, int B, int N, int P, int threads, int width,
-                          int shared, void* stream) {
-  return launch<double>(x, coef, status, B, N, P, threads, width, shared, stream);
+VT_EXPORT int vt_burg_f64(const void* x, void* coef, void* status, void* scratch, int B, int N, int P, int threads,
+                          int width, int rows, void* stream) {
+  return launch<double>(x, coef, status, scratch, B, N, P, threads, width, rows, stream);
 }

@@ -58,25 +58,34 @@
 // against the plain version, not to bits. tests/test_torch_ct_fused.py's
 // _model_ct_fused follows these steps in NumPy.
 //
+// Frames longer than one block holds (8192 in float32, 4096 in float64) run
+// over a thread-block cluster: see ct_fused_cluster_kernel below.
+//
 // Registers a thread (ptxas -v for sm_90a, as chip_smoke.py's build prints
 // them), by n = 128 .. 8192: float32 104 114 128 128 128 127 119 (capped at
-// 128, see Plan::kMinBlocks), float64 192 188 200 212 216 194; 0 bytes of
-// stack frame and spill in all 13. Shared memory: none static; dynamic, a
-// block's frames times n complex values: 16 KB in float32 and 32 KB in
+// 128, see Plan::kMinBlocks), float64 192 188 200 212 216 194; the clusters:
+// 128 at 16,384 in float32, 246 and 255 at 8,192 and 16,384 in float64; 0
+// bytes of stack frame and spill in all 16. Shared memory: none static;
+// dynamic, a block's frames times n complex values: 16 KB in float32 and 32 KB in
 // float64 for n <= 2048 (128 threads: 16 frames of 128 .. 1 of 2048), 32 KB
 // and 64 KB at n = 4096 (256 threads), 64 KB at 8192 (512 threads). At the
 // bench frame that is 2 blocks an SM in float32 (registers bind; 4 would
 // need at most 64 a thread), 1 in float64. At bench shapes it takes
 // 0.552 ms in float32, 2.9 times its bound (chip_smoke.py, NVIDIA H100
 // 80GB HBM3, 700 W).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kPoints = 16;            // complex values a thread holds
 constexpr int kMinBlockThreads = 128;  // small frames share a block up to this
-constexpr int kMaxLog2F32 = 13;        // n <= 8192 in float32
-constexpr int kMaxLog2F64 = 12;        // n <= 4096 in float64
+constexpr int kMaxLog2 = 14;           // n <= 16384 in either dtype
+constexpr int kBlockLog2F32 = 13;      // the largest frame one block holds: 8192 in float32
+constexpr int kBlockLog2F64 = 12;      // 4096 in float64; above it a cluster of n / that blocks
 
 template <typename T>
 struct Vec2;
@@ -191,12 +200,13 @@ __device__ __forceinline__ typename Vec2<T>::type pack(Cx<T> a) {
   return {a.re, a.im};
 }
 
-// One Stockham pass of radix R over spans of Ns (Ns > 1) through the
-// frame's buffer: butterflies j = t + q n/16 read buf[j + r n/R] and write
-// buf[(j - j mod Ns) R + j mod Ns + r Ns].
+// One Stockham pass of radix R over spans of Ns (Ns > 1) of an n-point
+// transform through the frame's buffer: butterflies j = t + q n/16 read
+// buf[j + r n/R] and write buf[(j - j mod Ns) R + j mod Ns + r Ns]. nt: the
+// table's n (w = e^{-2 pi i / 2 nt}); n itself but in a cluster's share.
 template <typename T, int R, bool kInv>
 __device__ __forceinline__ void exchange_pass(Cx<T>* v, typename Vec2<T>::type* buf,
-                                              const typename Vec2<T>::type* tw, int t, int Ns, int n) {
+                                              const typename Vec2<T>::type* tw, int t, int Ns, int n, int nt) {
   constexpr int G = kPoints / R;
   const int ft = n / kPoints, span = n / R;
 #pragma unroll
@@ -211,7 +221,7 @@ __device__ __forceinline__ void exchange_pass(Cx<T>* v, typename Vec2<T>::type* 
 #pragma unroll
   for (int q = 0; q < G; ++q) {
     const int j = t + q * ft, jm = j & (Ns - 1);
-    twiddle<T, R, kInv>(v + q * R, tw, jm * (2 * n / (Ns * R)));
+    twiddle<T, R, kInv>(v + q * R, tw, jm * (2 * nt / (Ns * R)));
     dft<T, R, kInv, false, false>(v + q * R);
     const int base = (j - jm) * R + jm;
 #pragma unroll
@@ -223,9 +233,15 @@ __device__ __forceinline__ void exchange_pass(Cx<T>* v, typename Vec2<T>::type* 
 template <typename T, int L>
 struct Plan {
   static constexpr int n = 1 << L;
-  static constexpr int kPasses = (L + 3) / 4;
-  static constexpr int kLast = 1 << (L - 4 * (kPasses - 1));  // the last pass's radix
-  static constexpr int kFrameThreads = n / kPoints;
+  // Blocks a frame (a cluster above the block's largest frame) and the
+  // points m of each block's transform.
+  static constexpr int kBlockLog2 = sizeof(T) == 4 ? kBlockLog2F32 : kBlockLog2F64;
+  static constexpr int kCluster = L > kBlockLog2 ? 1 << (L - kBlockLog2) : 1;
+  static constexpr int Lm = L > kBlockLog2 ? kBlockLog2 : L;
+  static constexpr int m = 1 << Lm;
+  static constexpr int kPasses = (Lm + 3) / 4;
+  static constexpr int kLast = 1 << (Lm - 4 * (kPasses - 1));  // the last pass's radix
+  static constexpr int kFrameThreads = m / kPoints;
   static constexpr int kFrames = kFrameThreads >= kMinBlockThreads ? 1 : kMinBlockThreads / kFrameThreads;
   static constexpr int kThreads = kFrames * kFrameThreads;
   // Blocks an SM must hold: float32 at most 128 registers a thread (two
@@ -239,6 +255,7 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
     ct_fused_kernel(const T* __restrict__ x, const T* __restrict__ tw_raw, T* __restrict__ half,
                     T* __restrict__ ac, int B) {
   using P = Plan<T, L>;
+  static_assert(P::kCluster == 1, "a frame of one block");
   using V = typename Vec2<T>::type;
   constexpr int n = P::n, ft = P::kFrameThreads, span16 = n / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -263,8 +280,8 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
   __syncthreads();
   int Ns = 16;
 #pragma unroll 1
-  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, false>(v, buf, tw, t, Ns, n);
-  exchange_pass<T, P::kLast, false>(v, buf, tw, t, Ns, n);
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, false>(v, buf, tw, t, Ns, n, n);
+  exchange_pass<T, P::kLast, false>(v, buf, tw, t, Ns, n, n);
 
   // The split, the power and the inverse packing, fused with the inverse's
   // pass 0: the thread reads Z[k] and Z[n-k] for its k = t + r n/16 and
@@ -297,7 +314,7 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
   __syncthreads();
   Ns = 16;
 #pragma unroll 1
-  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, true>(v, buf, tw, t, Ns, n);
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, true>(v, buf, tw, t, Ns, n, n);
 
   // The inverse's last pass (spans of n/R, so j < Ns): outputs m = j + r n/R
   // for r < R/2 only, i.e. m < n/2, stored as ac[2m], ac[2m+1] over N.
@@ -323,6 +340,151 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
   }
 }
 
+// w^e for 0 <= e < 2n from the table of w^k, k < n: w^{k + n} = -w^k.
+template <typename T>
+__device__ __forceinline__ Cx<T> tw_at(const typename Vec2<T>::type* tw, int e, int n) {
+  const bool hi = e >= n;
+  const auto w = __ldg(tw + (hi ? e - n : e));
+  return hi ? Cx<T>{-w.x, -w.y} : Cx<T>{w.x, w.y};
+}
+
+// A frame over a cluster of C = n / m blocks (16,384 in float32; 8,192 and
+// 16,384 in float64), block c of the cluster holding residue class c of the
+// spectrum: Z[C q + c] for q < m, the m-point FFT of
+//   y_c[j] = (sum_{r < C/2} z[j + r m] w_C^{r c}) w_n^{j c},   j < m
+// (z is zero from n/2 on, so r < C/2), each class in the single-block
+// kernel's plan of m points, its registers and its shared memory. The
+// split pairs k with n - k, which lies in class (C - c) mod C: block c reads
+// that class through distributed shared memory when it is another block's
+// (C = 4: blocks 1 and 3), after a cluster barrier, and a second one keeps
+// the peer's Z in place until every block has read it. Block c then packs
+// W[C q + c] and runs V_c, the m-point inverse FFT of its class (unpruned);
+// after a cluster barrier each block forms its n / 2C outputs t of the
+// inverse, sum_c' w_n^{-c' t} V_c'[t mod m], reading its peers' V_c'
+// through distributed shared memory; a last cluster barrier keeps every
+// block's buffer alive until its peers have read it. Twiddles: w_n^{j c} =
+// w^{2 j c} and w_m = w^{2 C} from the same table; no __sincosf.
+// Why a cluster: one block cannot hold these frames (16 values a thread
+// would take 1,024 threads of at most 64 registers at 16,384 in float32,
+// and 256 KB of exchange buffer at 16,384 in float64), while a split by
+// residue class leaves each block today's largest plan and makes only the
+// split and the last combination cross blocks. The cost: every block reads
+// the whole frame (C reads of x, through L2), and each cluster barrier
+// waits on the slowest block. At 3,840 frames of 16,384 floats it takes
+// 1.15 ms against 0.19 ms of bytes (cuFFT's three calls 3.05); in float64
+// 1.77 ms at 7,683 frames of 8,192 and 3.19 ms at 3,840 of 16,384
+// (chip_smoke.py phases 14 and 16, NVIDIA H100 80GB HBM3, 700 W).
+template <typename T, int L>
+__global__ void __launch_bounds__(Plan<T, L>::kThreads, 1)
+    ct_fused_cluster_kernel(const T* __restrict__ x, const T* __restrict__ tw_raw, T* __restrict__ half,
+                            T* __restrict__ ac) {
+  using P = Plan<T, L>;
+  using V = typename Vec2<T>::type;
+  constexpr int n = P::n, C = P::kCluster, m = P::m, span16 = m / 16;
+  static_assert(C == 2 || C == 4, "clusters of 2 or 4 blocks");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const long frame = blockIdx.x / C;
+  const int t = threadIdx.x;
+  V* buf = reinterpret_cast<V*>(smem_raw);
+  const V* tw = reinterpret_cast<const V*>(tw_raw);
+  Cx<T> v[kPoints];
+
+  // Forward pass 0 (radix 16, spans of 1) on y_c: butterfly t takes
+  // y_c[t + r m/16], formed from the frame as it is read.
+  const V* z = reinterpret_cast<const V*>(x + frame * n);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int j = t + r * span16;
+    const V a = __ldg(z + j);
+    Cx<T> y = {a.x, a.y};
+    if constexpr (C == 4) {
+      const V b = __ldg(z + j + m);  // times (-i)^c
+      const Cx<T> rb = c == 0 ? Cx<T>{b.x, b.y} : c == 1 ? Cx<T>{b.y, -b.x} : c == 2 ? Cx<T>{-b.x, -b.y}
+                                                                                     : Cx<T>{-b.y, b.x};
+      y = cadd(y, rb);
+    }
+    v[r] = c == 0 ? y : cmul(y, tw_at<T>(tw, 2 * j * c, n));
+  }
+  dft<T, 16, false, false, false>(v);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) buf[sw(16 * t + r)] = pack(v[r]);
+  __syncthreads();
+  int Ns = 16;
+#pragma unroll 1
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, false>(v, buf, tw, t, Ns, m, n);
+  exchange_pass<T, P::kLast, false>(v, buf, tw, t, Ns, m, n);
+
+  // The split, the power and the inverse packing of class c, fused with
+  // the inverse's pass 0: k = C q + c for q = t + r m/16, and n - k at q'
+  // of class (C - c) mod C.
+  const int cp = (C - c) % C;
+  if constexpr (C == 4) cluster.sync();  // the peer's Z is whole
+  // For C = 2 each class pairs with itself: a shared-memory pointer the
+  // compiler can see (a mapped one is generic, 64-bit: at 254 registers in
+  // float64 that spilled).
+  const V* zp = C == 2 || cp == c ? buf : cluster.map_shared_rank(buf, cp);
+  T* hr = half + frame * (n / 2 + 1);
+  const bool even = (c & 1) == 0;  // k is even with c
+  T p_n = T(0);                    // P[n], from k = 0 of block 0's thread 0
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int q = t + r * span16, k = C * q + c;
+    const int qp = c == 0 ? (m - q) & (m - 1) : m - 1 - q;
+    const V a = buf[sw(q)], bz = zp[sw(qp)];
+    const V w = __ldg(tw + k);
+    const T er = (a.x + bz.x) * T(0.5), ei = (a.y - bz.y) * T(0.5);
+    const T o_r = (a.x - bz.x) * T(0.5), o_i = (a.y + bz.y) * T(0.5);
+    const T wo_r = w.x * o_r - w.y * o_i, wo_i = w.x * o_i + w.y * o_r;
+    const T ur = -wo_i, ui = wo_r;  // U = i w^k O
+    const T d1r = er - ur, d1i = ei - ui, d2r = er + ur, d2i = ei + ui;
+    const T pk = d1r * d1r + d1i * d1i;  // P[k]
+    const T pn = d2r * d2r + d2i * d2i;  // P[n-k]
+    if (even) hr[k >> 1] = pk;
+    if (r == 0) p_n = pn;
+    const T s = pk + pn, d = pk - pn;
+    v[r] = {s + w.y * d, w.x * d};
+  }
+  if (c == 0 && t == 0) hr[n / 2] = p_n;
+  if constexpr (C == 4) {
+    cluster.sync();  // the peer has read this block's Z
+  } else {
+    __syncthreads();
+  }
+  dft<T, 16, true, false, false>(v);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) buf[sw(16 * t + r)] = pack(v[r]);
+  __syncthreads();
+  Ns = 16;
+#pragma unroll 1
+  for (int p = 1; p < P::kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, true>(v, buf, tw, t, Ns, m, n);
+  exchange_pass<T, P::kLast, true>(v, buf, tw, t, Ns, m, n);
+  cluster.sync();  // every class's V is whole
+
+  // Outputs t_out = c m/2 + t + i m/16, i < 8 (this block's n / 2C of the
+  // n / 2), stored as ac[2 t_out], ac[2 t_out + 1] over N.
+  const V* vc[C];
+#pragma unroll
+  for (int cc = 0; cc < C; ++cc) vc[cc] = cc == c ? buf : cluster.map_shared_rank(buf, cc);
+  const T inv_N = T(1) / static_cast<T>(2 * n);
+  V* ar = reinterpret_cast<V*>(ac + frame * n);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int to = c * (m / 2) + t + i * span16, sidx = sw(to & (m - 1));
+    const V a0 = vc[0][sidx];
+    Cx<T> y = {a0.x, a0.y};
+#pragma unroll
+    for (int cc = 1; cc < C; ++cc) {
+      const V a = vc[cc][sidx];
+      const Cx<T> w = tw_at<T>(tw, (2 * cc * to) & (2 * n - 1), n);
+      y = cadd(y, cmul(Cx<T>{a.x, a.y}, Cx<T>{w.re, -w.im}));
+    }
+    ar[to] = V{y.re * inv_N, y.im * inv_N};
+  }
+  cluster.sync();  // no block leaves while a peer reads its buffer
+}
+
 template <typename T, int L>
 int launch_plan(const void* x, const void* tw, void* half, void* ac, int B, cudaStream_t stream) {
   using P = Plan<T, L>;
@@ -339,25 +501,66 @@ int launch_plan(const void* x, const void* tw, void* half, void* ac, int B, cuda
   return static_cast<int>(cudaSuccess);
 }
 
+// A frame over a cluster of Plan::kCluster blocks, launched with its cluster
+// dimension. Whether such a cluster can be resident at all is asked once a
+// shape (cudaOccupancyMaxActiveClusters); where none can, the launch is
+// refused with cudaErrorLaunchOutOfResources, and the wrapper raises.
+template <typename T, int L>
+int launch_cluster(const void* x, const void* tw, void* half, void* ac, int B, cudaStream_t stream) {
+  using P = Plan<T, L>;
+  const auto kernel = ct_fused_cluster_kernel<T, L>;
+  const size_t smem = static_cast<size_t>(P::m) * sizeof(typename Vec2<T>::type);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P::kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(B) * P::kCluster);
+  config.blockDim = dim3(P::kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  static int resident = 0;  // clusters the card holds at once, asked once
+  if (resident == 0) {
+    err = cudaOccupancyMaxActiveClusters(&resident, reinterpret_cast<const void*>(kernel), &config);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
+  return static_cast<int>(cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(x), static_cast<const T*>(tw),
+                                             static_cast<T*>(half), static_cast<T*>(ac)));
+}
+
+template <typename T, int L>
+int launch_shape(const void* x, const void* tw, void* half, void* ac, int B, cudaStream_t stream) {
+  if constexpr (Plan<T, L>::kCluster == 1) {
+    return launch_plan<T, L>(x, tw, half, ac, B, stream);
+  } else {
+    return launch_cluster<T, L>(x, tw, half, ac, B, stream);
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* tw, void* half, void* ac, int B, int n, void* stream) {
-  constexpr int max_log2 = sizeof(T) == 4 ? kMaxLog2F32 : kMaxLog2F64;
-  if (n < 128 || n > (1 << max_log2) || (n & (n - 1)) != 0 || B < 0) {
+  if (n < 128 || n > (1 << kMaxLog2) || (n & (n - 1)) != 0 || B < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
     int err = 0;
     switch (__builtin_ctz(static_cast<unsigned>(n))) {
-      case 7: err = launch_plan<T, 7>(x, tw, half, ac, B, s); break;
-      case 8: err = launch_plan<T, 8>(x, tw, half, ac, B, s); break;
-      case 9: err = launch_plan<T, 9>(x, tw, half, ac, B, s); break;
-      case 10: err = launch_plan<T, 10>(x, tw, half, ac, B, s); break;
-      case 11: err = launch_plan<T, 11>(x, tw, half, ac, B, s); break;
-      case 12: err = launch_plan<T, 12>(x, tw, half, ac, B, s); break;
-      default:
-        if constexpr (sizeof(T) == 4) err = launch_plan<T, 13>(x, tw, half, ac, B, s);
-        break;
+      case 7: err = launch_shape<T, 7>(x, tw, half, ac, B, s); break;
+      case 8: err = launch_shape<T, 8>(x, tw, half, ac, B, s); break;
+      case 9: err = launch_shape<T, 9>(x, tw, half, ac, B, s); break;
+      case 10: err = launch_shape<T, 10>(x, tw, half, ac, B, s); break;
+      case 11: err = launch_shape<T, 11>(x, tw, half, ac, B, s); break;
+      case 12: err = launch_shape<T, 12>(x, tw, half, ac, B, s); break;
+      case 13: err = launch_shape<T, 13>(x, tw, half, ac, B, s); break;
+      default: err = launch_shape<T, 14>(x, tw, half, ac, B, s); break;
     }
     if (err != 0) return err;
   }

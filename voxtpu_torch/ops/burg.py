@@ -21,8 +21,11 @@ c) of (b1, b2), and an order costs one block barrier. `launch_config` is the
 pure function of (n, dtype) that picks the layout, the threads and the
 width c; the kernel's constants are mirrored here. Frames too long for the
 registers of a block's 512 threads (over 35 x 512 pairs in float32, 23 x 512
-in float64) run the same steps with the rows in shared memory (the `shared`
-layout), up to the card's shared memory a block.
+in float64) run the same steps with the rows in shared memory (the "shared"
+layout), up to the card's shared memory a block (28,967 float32 and 14,497
+float64 samples); longer ones with the rows in a scratch buffer in device
+memory that the wrapper allocates (the "device" layout, 512 threads at the
+width that holds the frame), so the card takes every frame length.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from voxtpu_torch import errors
 from voxtpu_torch.ops import kernels
 
-__all__ = ["BurgConfig", "burg_plain", "burg", "launch_config", "layout", "smem_bytes"]
+__all__ = ["BurgConfig", "ROWS", "burg_plain", "burg", "launch_config", "layout", "smem_bytes"]
 
 # Mirrors of csrc/burg.cu's constants.
 _MAX_ORDER = 127  # kMaxOrder
@@ -42,13 +45,16 @@ _WIDTH = {torch.float32: 35, torch.float64: 23}  # kWidthF32, kWidthF64
 _SHARED_WIDTH = 63  # kSharedWidth
 _MAX_THREADS = 512  # kMaxThreads
 _SMEM_LIMIT = 232448  # kSmemLimit
+# Where the rows live, as the launcher's `rows` argument (kRowsRegisters,
+# kRowsShared, kRowsDevice).
+ROWS = {"registers": 0, "shared": 1, "device": 2}
 
 
 class BurgConfig(NamedTuple):
-    """A launch of kernel B: rows in shared memory or in registers, threads
-    a block, pairs a thread."""
+    """A launch of kernel B: where the rows live ("registers", "shared" or
+    "device"), threads a block, pairs a thread."""
 
-    shared: bool
+    rows: str
     threads: int
     width: int
 
@@ -60,22 +66,26 @@ def _threads(n: int, width: int) -> int:
 
 
 def smem_bytes(n: int, dtype: torch.dtype, config: BurgConfig) -> int:
-    """csrc/burg.cu smem_bytes: the rows (n values staged, or b1 and b2 of
-    n - 1 values each), rounded to 16 bytes, then two parities of the warps'
-    (num, den) in double and first pairs in the dtype."""
-    rows = 2 * (n - 1) if config.shared else n
+    """csrc/burg.cu smem_bytes: the rows (n values staged, b1 and b2 of
+    n - 1 values each, or none when they lie in device memory), rounded to
+    16 bytes, then two parities of the warps' (num, den) in double and
+    first pairs in the dtype."""
+    rows = {"registers": n, "shared": 2 * (n - 1), "device": 0}[config.rows]
     warps = config.threads // 32
     return -(-rows * dtype.itemsize // 16) * 16 + 4 * warps * 8 + 4 * warps * dtype.itemsize
 
 
-def layout(n: int, dtype: torch.dtype, shared: bool) -> BurgConfig | None:
+def layout(n: int, dtype: torch.dtype, rows: str) -> BurgConfig | None:
     """The launch of kernel B for frames of n `dtype` values with the rows in
-    shared memory or in registers, at the fewest whole warps that hold them;
-    None where that takes more than a block's threads or shared memory."""
+    registers or shared memory, at the fewest whole warps that hold them
+    (None where that takes more than a block's threads or shared memory),
+    or in device memory, at 512 threads and the width that holds them."""
     if dtype not in _WIDTH:
         raise TypeError(f"burg: kernels take float32 or float64, got {dtype}")
-    width = _SHARED_WIDTH if shared else _WIDTH[dtype]
-    config = BurgConfig(shared, _threads(n, width), width)
+    if rows == "device":
+        return BurgConfig(rows, _MAX_THREADS, max(1, -(-(n - 1) // _MAX_THREADS)))
+    width = _SHARED_WIDTH if rows == "shared" else _WIDTH[dtype]
+    config = BurgConfig(rows, _threads(n, width), width)
     if config.threads > _MAX_THREADS or smem_bytes(n, dtype, config) > _SMEM_LIMIT:
         return None
     return config
@@ -84,11 +94,9 @@ def layout(n: int, dtype: torch.dtype, shared: bool) -> BurgConfig | None:
 def launch_config(n: int, dtype: torch.dtype) -> BurgConfig:
     """Kernel B's launch for (B, n) frames of `dtype`, a pure function of
     (n, dtype): the rows in registers where a block holds them, else in
-    shared memory. Raises ValueError where neither fits."""
-    config = layout(n, dtype, False) or layout(n, dtype, True)
-    if config is None:
-        raise ValueError(f"burg: frames of {n} {dtype} values exceed the kernel's shared memory")
-    return config
+    shared memory, else in device memory."""
+    return layout(n, dtype, "registers") or layout(n, dtype, "shared") or layout(n, dtype, "device")
+
 
 
 def burg_plain(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,13 +153,25 @@ def burg(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
             f"burg: the card takes LPC orders up to {_MAX_ORDER}, as voxtpu's Pallas kernel "
             f"(voxtpu/ops/burg_pallas.py:87-88); got {p}"
         )
+    coef, status = _launch(x.contiguous(), p, launch_config(x.shape[-1], x.dtype))
+    burg.launches += 1
+    return coef, status
+
+
+def _launch(x: torch.Tensor, p: int, config: BurgConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """csrc/burg.cu over contiguous (B, N) frames at order p with `config`
+    (uncounted: `burg` counts its launch; tools/burg_split.py runs the other
+    layouts through this). The device layout's rows go in a scratch buffer,
+    (B, width, 2, threads): pair t c + j of a frame's (b1, b2) at [j, :, t],
+    uninitialised (the kernel fills them from the frames)."""
     B, N = x.shape
-    config = launch_config(N, x.dtype)
-    x = x.contiguous()
     coef = torch.empty((B, p), dtype=x.dtype, device=x.device)
     status = torch.empty((B,), dtype=torch.int32, device=x.device)
-    kernels.launch("vt_burg", x.dtype, x, coef, status, B, N, p, config.threads, config.width, int(config.shared))
-    burg.launches += 1
+    rows = None
+    if config.rows == "device":
+        rows = torch.empty((B, config.width, 2, config.threads), dtype=x.dtype, device=x.device)
+    kernels.launch("vt_burg", x.dtype, x, coef, status, rows, B, N, p, config.threads, config.width,
+                   ROWS[config.rows])
     return coef, status
 
 

@@ -6,8 +6,11 @@ voxtpu/ops/ct_fused_pallas.py's `ct_fused_power_ac`).
 irfft. `ct_fused_power_ac` runs it for CPU tensors and launches the kernel
 for CUDA tensors: the real frame packed into n/2 complex points, two
 n-point transforms of radix-16 passes in registers, 16 complex values a
-thread. `ct_fused_supported` is the shape gate: which shapes the kernel
-takes follows from (n, nfft, dtype) alone, never from a failed launch.
+thread; a frame longer than one block holds (8192 in float32, 4096 in
+float64) spreads over a thread-block cluster of n / that blocks, each one
+residue class of the spectrum. `ct_fused_supported` is the shape gate:
+which shapes the kernel takes follows from (n, nfft, dtype) alone, never
+from a failed launch.
 """
 
 from __future__ import annotations
@@ -19,29 +22,41 @@ import torch
 
 from voxtpu_torch.ops import kernels
 
-__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_smem_bytes", "ct_fused_supported", "ct_fused_power_ac_plain",
-           "ct_fused_power_ac"]
+__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_cluster", "ct_fused_smem_bytes", "ct_fused_supported",
+           "ct_fused_power_ac_plain", "ct_fused_power_ac"]
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB)
 # The largest frame the kernel takes, per dtype (csrc/ct_fused.cu's
-# kMaxLog2F32 and kMaxLog2F64). Fixed, so that which frames take the kernel
-# and which take cuFFT does not depend on the kernel's shared-memory use.
-MAX_N = {torch.float32: 8192, torch.float64: 4096}
+# kMaxLog2): voxtpu's gate on power-of-two frames, 128 to 16,384. Fixed, so
+# that which frames take the kernel and which take cuFFT does not depend on
+# the kernel's shared-memory use.
+MAX_N = {torch.float32: 16384, torch.float64: 16384}
+# The largest frame one block holds (kBlockLog2F32, kBlockLog2F64); a
+# longer one takes a cluster of n / this blocks.
+_BLOCK_N = {torch.float32: 8192, torch.float64: 4096}
 _POINTS = 16  # complex values a thread holds (csrc/ct_fused.cu's kPoints)
 _MIN_BLOCK_THREADS = 128  # frames of fewer than 2048 points share a block up to this (kMinBlockThreads)
 
 
+def ct_fused_cluster(n: int, dtype: torch.dtype) -> int:
+    """Blocks a frame of n takes: 1 up to the largest frame one block holds,
+    n / that above it (a thread-block cluster of 2 or 4)."""
+    return max(1, int(n) // _BLOCK_N[dtype])
+
+
 def ct_fused_smem_bytes(n: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block: each of its frames' exchange
-    buffer of n complex values (csrc/ct_fused.cu)."""
+    buffer of n complex values, or of n / cluster in a cluster's block
+    (csrc/ct_fused.cu)."""
     itemsize = 8 if dtype == torch.float64 else 4
-    frames = max(1, _MIN_BLOCK_THREADS // (int(n) // _POINTS))
-    return frames * int(n) * 2 * itemsize
+    m = int(n) // ct_fused_cluster(n, dtype)
+    frames = max(1, _MIN_BLOCK_THREADS // (m // _POINTS))
+    return frames * m * 2 * itemsize
 
 
 def ct_fused_supported(n: int, nfft: int, dtype: torch.dtype) -> bool:
     """The kernel takes nfft == 2n, n a power of two from 128 to MAX_N
-    (8192 in float32, 4096 in float64)."""
+    (16,384 in either dtype): voxtpu's gate on power-of-two frames."""
     n, nfft = int(n), int(nfft)
     return dtype in MAX_N and nfft == 2 * n and 128 <= n <= MAX_N[dtype] and n & (n - 1) == 0
 
