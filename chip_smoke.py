@@ -12,10 +12,16 @@ checkout. Phases, each an uncaught exception when it fails:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the nine kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report; every instantiation of kernels A-F, P and
-   X3 (E's thread-block cluster ones and B's device layout among them)
+   X3 (E's thread-block cluster ones, E's prime-factor kernel for the
+   lengths that are not powers of two and B's device layout among them)
    must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
    memory a block at C = 33 and 128 in both dtypes; beside it, the build
-   of tools/burg_rates.cu's rate probes (phase 10);
+   of tools/burg_rates.cu's rate probes (phase 10). Then a second process
+   starts on the card (`side_checks`, `chip_smoke.py --side`), which runs
+   phase 3d and (3e) `analyze` at the CLI defaults with MANY_ESTIMATES
+   starting estimates in float64 against the plain CPU path over the
+   first 2 s (kernel D once, status 0) beside phases 3-8; main joins it
+   after phase 8 and fails if it did;
 3. kernels G (pitch_pre), A-D (refine, burg, find_roots, formant_scan) and
    P (polish) against their plain PyTorch versions on the card, at the
    shapes of the CLI path (CLI_DEFAULT_44K over 126 tiles of the bundled
@@ -32,15 +38,17 @@ checkout. Phases, each an uncaught exception when it fails:
    next), as on every path below; C on `roots_edge_cases` against its plain
    version in both dtypes; then (3b) D on `scan_stress_cases`, its
    adversarial inputs built from the CLI path's float32 resonances, and on
-   `scan_shape_cases` (R from 1 to 100, L from 1 to 16); then (3c) B on
+   `scan_shape_cases` (R from 1 to 100, L from 1 to 16), and on the CLI
+   path's resonances at L = 17, 64 and 128 estimates (SCAN_LS, seeds from
+   `extended_estimates`) in both dtypes; then (3c) B on
    long frames against its plain version, on noisy frames of the recording
    (BURG_LARGE): in each dtype the register layout at up to its 512
    threads a block, its largest frame included, then the rows in shared
    memory above that, up to the largest frame the kernel before it took,
    then the rows in device memory (32,768 and 65,536 float32, 16,384 and
-   32,768 float64); each case must take the layout it names; then (3d) B,
-   C and P at N = 33, 64 and 128 (LPC orders to 127, ORDER_NS) against
-   their plain versions in both dtypes (`check_orders`);
+   32,768 float64); each case must take the layout it names; (3d, in the
+   side process) B, C and P at N = 33, 64 and 128 (LPC orders to 127,
+   ORDER_NS) against their plain versions in both dtypes (`check_orders`);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
    launch count reset just before and read just after; G, A-D and P must
    have run once each and E and F not at all, outputs must be finite
@@ -79,8 +87,11 @@ checkout. Phases, each an uncaught exception when it fails:
    all eight kernels against their plain versions at its shapes and
    float64 card-vs-CPU parity over the first 2 s; then kernel E against
    its plain version at every frame length its gate admits, which must
-   reach 16,384 in both dtypes (over a thread-block cluster above 8,192
-   float32 and 4,096 float64 samples);
+   be the 161 multiples of 128 up to 20,608 in both dtypes, 20,736
+   refused (over a thread-block cluster above 8,192 float32 and 4,096
+   float64 samples; the 153 lengths that are not powers of two by the
+   prime-factor kernel, in float64 above 14,336 samples with its buffer in
+   device memory), each launched once;
 9. the command line, float32, from IEEE-float WAVs of the 126 tiles and of
    the 16 corpus recordings: `python3 -m voxtpu_torch analyze` as a
    subprocess against in-process `analyze`, and `cli.main(["corpus", ...,
@@ -172,7 +183,14 @@ checkout. Phases, each an uncaught exception when it fails:
    (`x3_bound`), registers, and 0 bytes of stack frame and spill in X3's
    kernel; then X3 and E (a cluster of 2 blocks a frame) at n = 16,384
    (the bench recording framed 16,384 / 4,096, windowed) against their
-   plain versions and the float64 FFT, timed beside cuFFT;
+   plain versions and the float64 FFT, timed beside cuFFT; then E at
+   E_PFA_NS (2,176, 12,288 and 20,096 samples, not powers of two) on the
+   recording framed n / (n / 4), windowed, against its plain version and
+   the float64 FFT, timed beside its plain version, cuFFT and X3, with its
+   bound (the function's work) and, beside it, the least time for its
+   direct DFTs' operations, and the prime-factor kernel's registers and
+   spill; then E in float64 with its buffer in device memory on 2 x SMs +
+   1 noise frames (each block walks two or three) at E_DEVICE_MANY_NS;
 15. the examples (`check_examples`): examples/torch/pitch_detection.py,
    formant_extraction.py and serving_client.py with `--device cuda`, each
    run counted, checked as tests/test_torch_examples.py checks them;
@@ -197,6 +215,7 @@ error, times and bound; the last is the device line
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -245,6 +264,23 @@ X3_TOL = 2e-5
 # lag piece; all but 384 have several tiles, the last one partial (4224:
 # 6 chunks a frame, which the ring's 4 stages do not divide).
 X3_MANY_NS = (384, 4224, 12928, 20608)
+# Frame lengths that are not powers of two at which phase 14 times kernel E
+# (its prime-factor kernel) on the recording, framed n / (n / 4): 2^7 x 17,
+# 2^12 x 3 (the largest power-of-two factor) and 2^7 x 157 (the largest
+# prime factor of voxtpu's lengths).
+E_PFA_NS = (2176, 12288, 20096)
+# Lengths at which phase 14 runs kernel E's float64 layout with the buffer
+# in device memory (n + m complex values past a block's shared memory, n >
+# 14,336) on 2 x SMs + 1 frames: the smallest such length, 128 x 113, and
+# 128 x 157.
+E_DEVICE_MANY_NS = (14464, 20096)
+# Frames of seeded noise a length of kernel E's gate walk (phase 8): the
+# powers of two as before, and the 153 other lengths.
+E_GATE_FRAMES = {"pow2": 256, "other": 32}
+# Kernel D's estimate counts past its old cap of 16, up to voxtpu's LANES
+# (phase 3b), and the count of the `analyze` that the side process runs.
+SCAN_LS = (17, 64, 128)
+MANY_ESTIMATES = 24
 
 # Peak rates of one H100 SXM at 700 W: HBM3 bytes/s, float32 and float64
 # FLOP/s outside the tensor cores, and dense bfloat16 FLOP/s on them
@@ -275,16 +311,19 @@ BURG_LARGE = (
 )
 
 # The kernels whose build must show 0 bytes of stack frame and spill (phase
-# 2), with their instantiation counts. D: two kernels in two dtypes; E: one a
-# frame length its gate admits (128-16384 in either dtype: one block a frame
-# up to 8192 in float32 and 4096 in float64, a cluster above); A: one in
+# 2), with their instantiation counts. D: three kernels in two dtypes (the
+# seed columns' fill for more than 32 estimates the third); E: one a
+# power-of-two frame length (128-16384 in either dtype: one block a frame up
+# to 8192 in float32 and 4096 in float64, a cluster above), and for the
+# other lengths one a power-of-two factor N1 = 128 .. 4096 (the buffer in
+# shared memory), in float64 also with the buffer in device memory; A: one in
 # each dtype; B: three in each dtype (its register width, the rows in shared
 # memory, the rows in device memory); C: two in each dtype (N = 14 and the
 # capacity, N <= 128); P: two in each dtype (N = 14 in registers, any N <=
 # 128); F: the cost
 # pre-pass in each dtype, and the chain in each dtype with and without its
 # clock probe; X3: one kernel for every n its gate admits.
-STACK_CHECKED = {"formant_scan": 4, "ct_fused": 16, "refine_kernel": 2, "burg_kernel": 6, "roots_kernel": 4,
+STACK_CHECKED = {"formant_scan": 6, "ct_fused": 34, "refine_kernel": 2, "burg_kernel": 6, "roots_kernel": 4,
                  "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
 # coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
@@ -1136,6 +1175,29 @@ def scan_shape_cases(rf, rb, frames: int = 300) -> list:
     return cases
 
 
+def extended_estimates(L: int) -> tuple:
+    """L >= 4 starting estimates: MALE_FORMANT_ESTIMATES (lib.rs:27), then
+    every 250 Hz from 3,500 Hz. Kernel D tracks the first six and keeps the
+    rest at their seeds, as voxtpu does for up to LANES = 128."""
+    from voxtpu_torch.formants import MALE_FORMANT_ESTIMATES
+
+    return tuple(MALE_FORMANT_ESTIMATES) + tuple(3500.0 + 250.0 * i for i in range(L - 4))
+
+
+def check_scan_estimates(rf, rb, checks: Checks) -> None:
+    """Kernel D past its old cap of 16 estimates: L in SCAN_LS on a path's
+    resonances (rf, rb) in float32 and float64, seeds from
+    `extended_estimates`, every frame held to the serial scan by
+    `formant_scan_check` (bit for bit)."""
+    import torch
+
+    for dt in (torch.float32, torch.float64):
+        for L in SCAN_LS:
+            ef = torch.as_tensor(extended_estimates(L), dtype=dt, device=rf.device)
+            check_scan_every_frame(rf.to(dt), rb.to(dt), ef, torch.ones_like(ef), len(rf), checks,
+                                   f"L = {L}, {'f64' if dt == torch.float64 else 'f32'}")
+
+
 def bench_kernel_inputs(frames, out, cfg):
     """Kernel E's, F's and G's arguments at a path's shapes: the
     Hann-windowed frames as (F, n), the DP inputs that `pitch_path` builds
@@ -1402,20 +1464,28 @@ def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks,
 
 def check_ct_fused_gate(checks: Checks, dev) -> None:
     """Kernel E against its plain version at every frame length its shape
-    gate admits, in both dtypes: 256 frames of seeded noise each. The gate
-    must reach 16,384 in both (voxtpu's, on power-of-two frames)."""
+    gate admits, in both dtypes: seeded noise, E_GATE_FRAMES frames a
+    length. The gate must admit the 161 multiples of 128 up to 20,608 and
+    refuse 20,736 in both (voxtpu's), and each length must launch E."""
     import torch
 
-    from voxtpu_torch.ops.ct_fused import ct_fused_supported
+    from voxtpu_torch.ops import ct_fused
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for dt in (torch.float64, torch.float32):
-        n = 128
-        while ct_fused_supported(n, 2 * n, dt):
-            x = torch.randn((256, n), generator=gen, dtype=dt, device=dev)
-            check_ct_fused(x, 2 * n, checks, f"gate, n={n}, {'f64' if dt == torch.float64 else 'f32'}")
-            n *= 2
-        checks.true(f"ct_fused gate reaches n=16384 in {dt}", n == 32768, f"(first refused n={n})")
+        dname = "f64" if dt == torch.float64 else "f32"
+        admitted = [n for n in range(128, 24000, 128) if ct_fused.ct_fused_supported(n, 2 * n, dt)]
+        checks.true(f"ct_fused gate admits the multiples of 128 from 128 to 20608 in {dt}",
+                    admitted == list(range(128, 20608 + 1, 128)) and not ct_fused.ct_fused_supported(20736, 41472, dt),
+                    f"({len(admitted)}: {admitted[0]} .. {admitted[-1]})")
+        before = ct_fused.ct_fused_power_ac.launches
+        for n in admitted:
+            frames = E_GATE_FRAMES["pow2" if n & (n - 1) == 0 else "other"]
+            x = torch.randn((frames, n), generator=gen, dtype=dt, device=dev)
+            check_ct_fused(x, 2 * n, checks, f"gate, n={n}, {ct_fused.ct_fused_layout(n, dt)}, {dname}")
+        launched = ct_fused.ct_fused_power_ac.launches - before
+        checks.true(f"ct_fused launched once at each of the {len(admitted)} lengths in {dt}",
+                    launched == len(admitted), f"({launched})")
 
 
 def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
@@ -1588,6 +1658,25 @@ def ct_fused_bound(x, nfft: int) -> tuple[float, str]:
     isz = x.element_size()
     ops = F * (2 * 2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1))
     return bound(F * n * isz + F * (n // 2 + 1) * isz + F * n * isz, ops / (F32_OPS_S if isz == 4 else F64_OPS_S))
+
+
+def ct_fused_pfa_algo_ms(x, nfft: int) -> float:
+    """The least ms for the operations that kernel E's prime-factor kernel
+    does at (F, n) frames x of a length that is not a power of two (n = N1
+    m), at the card's peak rate: the forward m-point DFTs over the n/2
+    nonzero points and the inverse ones for the n/2 outputs, m complex
+    multiply-adds (8 operations) each, about 8 n m; the N1-point FFTs of
+    the m rows each way, 5 N1 log2 N1 each; the split, about 30 operations
+    a pair. It says how far the kernel's own algorithm is from the card's
+    rate and is reported beside E's bound (`ct_fused_bound`, the function's
+    work), never as it: the direct DFTs count far more operations than the
+    function needs."""
+    F, n = x.shape
+    isz = x.element_size()
+    n1 = n & -n
+    m = n // n1
+    ops = F * (8 * n * m + 2 * m * 5 * n1 * math.log2(n1) + 30 * (n // 2 + 1))
+    return ops / (F32_OPS_S if isz == 4 else F64_OPS_S) * 1e3
 
 
 def cufft_power_ac(x, nfft: int):
@@ -2734,6 +2823,128 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
     return x3_row, e16
 
 
+def check_ct_fused_pfa(signal, build_log: str, card: str, checks: Checks) -> dict:
+    """Phase 14's rows of kernel E at lengths that are not powers of two
+    (E_PFA_NS), float32: the recording `signal` framed n / (n / 4) and
+    windowed; E against its plain version and against the float64 FFT per
+    frame (CT_FUSED_F32_TOL); the times (CUDA events, mean of 5) of E, its
+    plain version, cuFFT's rfft-power-irfft and X3 on the same frames; E's
+    bound, the function's work (`ct_fused_bound`), and beside it the least
+    time for its kernel's own operations (`ct_fused_pfa_algo_ms`); the
+    prime-factor kernel's registers and stack/spill. Then the float64
+    layout with the buffer in device memory on 2 x SMs + 1 seeded noise
+    frames at E_DEVICE_MANY_NS (the wrapper runs one block an SM, so each
+    block walks two or three frames through its scratch slice), against
+    the plain version at the float64 tolerances. Returns {f"n{n}_f32":
+    numbers, "device_many_f64": numbers}."""
+    import torch
+
+    from voxtpu_torch.frame import frame_signal
+    from voxtpu_torch.ops import ct_fused, ct_x3
+
+    regs = kernel_registers(build_log, "ct_fused_pfa_kernel")
+    spills = stack_frames(build_log, "ct_fused_pfa_kernel")
+    print(f"  ct_fused_pfa_kernel: registers {sorted(regs.values())}, stack/spill {sorted(set(spills.values()))} "
+          f"over {len(spills)} instantiations")
+    out = {}
+    for n in E_PFA_NS:
+        x = hann_windowed(frame_signal(signal, n, n // 4))
+        err = check_ct_fused(x, 2 * n, checks, f"{x.shape[0]} frames of {n}, recording, f32")
+        he, ae = ct_fused.ct_fused_power_ac(x, 2 * n)
+        h64, a64 = f64_transform(x, 2 * n)
+        err64 = max(close_per_frame(f"E half vs float64 fft [n = {n}]", he, h64, CT_FUSED_F32_TOL, checks),
+                    close_per_frame(f"E ac vs float64 fft [n = {n}]", ae, a64, CT_FUSED_F32_TOL, checks))
+        del he, ae, h64, a64
+        v = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x, 2 * n)),
+             "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x, 2 * n)),
+             "library_ms": event_ms(lambda: cufft_power_ac(x, 2 * n)),
+             "x3_ms": event_ms(lambda: ct_x3.ct_x3_power_ac(x, 2 * n))}
+        bound_ms, bound_by = ct_fused_bound(x, 2 * n)
+        n1 = n & -n
+        v.update(bound_ms=bound_ms, bound_by=bound_by, algo_bound_ms=ct_fused_pfa_algo_ms(x, 2 * n), max_abs_err=err,
+                 err_vs_f64_fft=err64, frames=x.shape[0], n=n, n1=n1, m=n // n1, dtype="float32",
+                 layout=ct_fused.ct_fused_layout(n, x.dtype))
+        out[f"n{n}_f32"] = v
+        print(f"  ct_fused, {v['frames']} frames of {n} = {n1} x {v['m']} (prime-factor kernel): kernel {v['ms']:.3f} "
+              f"ms, plain {v['plain_ms']:.3f} ms, cuFFT {v['library_ms']:.3f} ms, X3 {v['x3_ms']:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} (its direct DFTs' operations alone: {v['algo_bound_ms']:.4f} ms); "
+              f"within {err64:.3e} of the float64 fft per frame [{card}]")
+    dev = signal.device
+    many = 2 * torch.cuda.get_device_properties(dev).multi_processor_count + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = []
+    for n in E_DEVICE_MANY_NS:
+        layout = ct_fused.ct_fused_layout(n, torch.float64)
+        checks.true(f"ct_fused at n = {n} float64 keeps its buffer in device memory", layout == "device", layout)
+        x = torch.randn((many, n), generator=gen, dtype=torch.float64, device=dev)
+        errs.append(check_ct_fused(x, 2 * n, checks, f"{many} frames of {n} (each block walks two or three), "
+                                                     f"{layout}, f64"))
+    out["device_many_f64"] = {"frames": many, "ns": E_DEVICE_MANY_NS, "max_abs_err": max(errs)}
+    print(f"  ct_fused, float64, buffer in device memory: {many} frames at n = {E_DEVICE_MANY_NS} within "
+          f"{max(errs):.3e} of the plain version")
+    return out
+
+
+def check_many_estimates(checks: Checks, dev) -> None:
+    """`analyze` at CLI_DEFAULT_44K with MANY_ESTIMATES starting estimates
+    (`extended_estimates`) in float64 on the card, counted (kernel D once,
+    every frame's status 0, F x MANY_ESTIMATES formants), against the plain
+    CPU path over the first 2 s of the recording at the slice tolerances
+    (`compare_slice`)."""
+    import torch
+
+    from voxtpu_torch.io_wav import read_wav
+    from voxtpu_torch.ops import formant_scan
+    from voxtpu_torch.pipeline import CLI_DEFAULT_44K, analyze
+
+    base = CLI_DEFAULT_44K
+    cfg = dataclasses.replace(base, formant=dataclasses.replace(base.formant,
+                                                                 estimates=extended_estimates(MANY_ESTIMATES)))
+    head = np.tile(np.asarray(read_wav(str(FIXTURE)).samples, dtype=np.float64), 2)[: int(2 * cfg.sample_rate)]
+    formant_scan.formant_scan.launches = 0
+    card = analyze(torch.as_tensor(head, device=dev), cfg)
+    torch.cuda.synchronize()
+    launched = formant_scan.formant_scan.launches
+    shape = tuple(card["formant_freqs"].shape)
+    nonzero = int(card["status"].count_nonzero())
+    checks.true(f"{MANY_ESTIMATES} estimates, float64 on the card: formant_scan launched once, status 0",
+                launched == 1 and nonzero == 0 and shape[1:] == (MANY_ESTIMATES,),
+                f"({launched} launch(es), {nonzero} nonzero statuses, formants {shape})")
+    cpu = analyze(torch.as_tensor(head), cfg)
+    compare_slice(f"{MANY_ESTIMATES} estimates f64 card vs cpu", card, cpu, cfg.sample_rate, checks)
+
+
+def side_checks() -> None:
+    """`python3 chip_smoke.py --side`, which `main` starts once it has built
+    the kernels, and which runs beside main's phases on the same card: phase
+    3d (`check_orders`; the plain roots' Python loops at N = 64 and 128 keep
+    a host core busy for minutes) and `check_many_estimates` (its plain CPU
+    path about a minute). Prints its checks and the seconds each took;
+    raises when a check failed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_smoke.py runs on the card only")
+    sys.path.insert(0, str(ROOT))
+    from voxtpu_torch.ops import kernels
+
+    kernels.library()  # main built it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the other half of the host: main's
+    dev = torch.device("cuda", 0)
+    checks = Checks()
+    t0 = time.perf_counter()
+    print(f"kernels B, C and P vs plain at N = {', '.join(map(str, ORDER_NS))} (LPC orders to 127):")
+    check_orders(checks, dev)
+    t1 = time.perf_counter()
+    print(f"[phase 3d, kernels B, C and P at high orders: {t1 - t0:.1f} s]")
+    print(f"analyze with {MANY_ESTIMATES} estimates, float64 on the card vs the plain CPU path, first 2 s:")
+    check_many_estimates(checks, dev)
+    print(f"[phase 3e, {MANY_ESTIMATES} estimates: {time.perf_counter() - t1:.1f} s]", flush=True)
+    checks.raise_failures()
+
+
 def check_examples(checks: Checks, run_counted, device: str = "cuda") -> dict:
     """Phase 15: examples/torch/* on the card (`--device cuda`), checked as
     tests/test_torch_examples.py checks them on the CPU."""
@@ -2964,6 +3175,18 @@ def main() -> None:
             print(f"viterbi_chain at C = {C}, {dt}: {vc.smem} bytes of dynamic shared memory a block ({vc.stages} "
                   f"stages of {vc.record}-byte records), {vc.chain} chain threads + 32, {vc.lanes} lanes a candidate")
     kernels.library()
+    # Phase 3d and the many-estimates `analyze` run in a second process on
+    # the card beside phases 3-8 (`side_checks`), joined before phase 9.
+    side_log = tempfile.TemporaryFile(mode="w+")
+    side = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--side"], cwd=ROOT, stdout=side_log,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def stop_side() -> None:
+        if side.poll() is None:
+            side.kill()
+            side.wait()
+
+    atexit.register(stop_side)
 
     # --- data: 126 tiles of the bundled recording
     cfg = CLI_DEFAULT_44K
@@ -2993,15 +3216,15 @@ def main() -> None:
     print("kernel D on adversarial inputs from the CLI path's float32 resonances:")
     rf32, rb32, ef32, eb32, _ = scan_runs["cli"][torch.float32]["args"]
     check_scan_stress(rf32, rb32, ef32, eb32, checks)
-    phase_took("phase 3b, kernel D on adversarial inputs")
+    print("kernel D past 16 estimates, on the CLI path's float32 resonances:")
+    check_scan_estimates(rf32, rb32, checks)
+    phase_took("phase 3b, kernel D on adversarial inputs and at 17, 64 and 128 estimates")
 
     print("kernel B's shared-memory layout vs plain, noisy frames of the recording:")
     check_burg_large(checks, dev)
     phase_took("phase 3c, kernel B on long frames")
 
-    print(f"kernels B, C and P vs plain at N = {', '.join(map(str, ORDER_NS))} (LPC orders to 127):")
-    check_orders(checks, dev)
-    phase_took("phase 3d, kernels B, C and P at high orders")
+    # (3d, B, C and P at high orders, runs in the side process.)
 
     # --- 4. the CLI path, float32
     analyze(sig32[: 50 * cfg.hop + cfg.frame_len], cfg)  # warm cuFFT plans and caches
@@ -3133,6 +3356,14 @@ def main() -> None:
     print("kernel E vs plain at every frame length its gate admits:")
     check_ct_fused_gate(checks, dev)
     phase_took("phase 8, flagship path and kernel E's gate")
+
+    # --- the side process: phase 3d and the many-estimates `analyze`
+    side_rc = side.wait()
+    side_log.seek(0)
+    print(f"side process (phase 3d; {MANY_ESTIMATES} estimates), exit {side_rc}:")
+    print(side_log.read(), end="")
+    checks.true("the side process's checks", side_rc == 0, f"(exit {side_rc})")
+    phase_took("the side process, joined")
 
     # --- 9. the command line, float32, from IEEE-float WAVs
     from voxtpu_torch import cli
@@ -3515,6 +3746,7 @@ def main() -> None:
     # --- 14. the autocorrelation backends at the bench shapes: X3, "ct", E
     x3_row, e16 = check_autocorr_backends(xe, nfft, sig32, build_log, card, checks, run_counted, dev)
     rows.append(x3_row)
+    e_pfa = check_ct_fused_pfa(sig32, build_log, card, checks)
     phase_took("phase 14, the autocorrelation backends")
 
     # --- 15. the examples on the card
@@ -3524,7 +3756,7 @@ def main() -> None:
     # --- 16. frames of 16,384 and 32,768: E over a cluster, B's rows in device memory
     large = check_large_frames(signal, sig32, sig64, card, checks, run_counted, expect_launches, cvt_s, dev)
     e_row["shapes"] = {"n16384_f32": {**e16, "launches": large["paths"][16384]["launches"]["ct_fused"]},
-                       **large["ct_fused"]}
+                       **large["ct_fused"], **e_pfa}
     b_row["shapes"] = large["burg"]
     for row in rows:
         for n in LARGE_NS:
@@ -3554,4 +3786,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--side"]:
+        side_checks()
+    else:
+        main()

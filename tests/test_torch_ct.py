@@ -146,11 +146,11 @@ _GRID = [(n, nfft) for n in (64, 96, 128, 256, 300, 384, 512, 1536, 2205, 4096, 
 def test_routing_matches_voxtpu(half, dtype):
     """For "fft", "ct" and "ct_fused_x3" the port takes voxtpu's branch on
     every (n, nfft, dtype) of the grid. "ct_fused" and None take kernel E
-    exactly where E's own gate admits the shape and "fft" elsewhere; on
-    power-of-two frames, the only ones the entry points bring to it (nfft =
-    next_pow2(2n)), that is voxtpu's branch wherever voxtpu's fused gate
-    admits the shape, up to 16,384 in both dtypes. The other lengths
-    voxtpu's op takes at nfft = 2n (multiples of 128) are still to port."""
+    exactly where E's own gate admits the shape and "fft" elsewhere; that
+    is voxtpu's branch wherever voxtpu's fused gate admits the shape: on
+    power-of-two frames up to 16,384, the only ones the entry points bring
+    to it (nfft = next_pow2(2n)), and at nfft = 2n on the other multiples
+    of 128 up to 20,608, in both dtypes."""
     for n, nfft in _GRID:
         for name in ("fft", "ct", "ct_fused_x3"):
             got = autocorr._backend(name, n, nfft, dtype, half=half)
@@ -158,7 +158,7 @@ def test_routing_matches_voxtpu(half, dtype):
         e = "ct_fused" if ct_fused.ct_fused_supported(n, nfft, dtype) else "fft"
         assert autocorr._backend("ct_fused", n, nfft, dtype, half=half) == e
         assert autocorr._backend(None, n, nfft, dtype, half=half) == e
-        if n & (n - 1) == 0 and jax_ct_fused_supported(n, nfft):
+        if jax_ct_fused_supported(n, nfft):
             assert e == _jax_branch("ct_fused", n, nfft, half) == "ct_fused", (n, nfft, dtype, half)
         elif n & (n - 1) == 0:
             assert e == "fft", (n, nfft, dtype, half)

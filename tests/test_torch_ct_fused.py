@@ -95,13 +95,16 @@ def test_autocorrelate_ct_fused_matches_jax(n, nc):
     (128, 256, torch.float64, True),  # the smallest frame
     (8192, 16384, torch.float32, True),  # float32's largest frame of one block
     (8192, 16384, torch.float64, True),  # a cluster of 2 blocks
-    (16384, 32768, torch.float32, True),  # the largest (MAX_N), a cluster of 2 blocks
-    (16384, 32768, torch.float64, True),  # the largest (MAX_N), a cluster of 4 blocks
-    (32768, 65536, torch.float32, False),  # above the largest, as voxtpu's gate
+    (16384, 32768, torch.float32, True),  # the largest power of two, a cluster of 2 blocks
+    (16384, 32768, torch.float64, True),  # the largest power of two, a cluster of 4 blocks
+    (20608, 41216, torch.float32, True),  # the largest (MAX_N), 128 x 161, the prime-factor kernel
+    (20608, 41216, torch.float64, True),  # its buffer in device memory
+    (20736, 41472, torch.float32, False),  # above the largest, as voxtpu's gate
+    (32768, 65536, torch.float32, False),
     (32768, 65536, torch.float64, False),
     (64, 128, torch.float32, False),  # below 128
-    (96, 192, torch.float64, False),  # not a power of two
-    (1536, 3072, torch.float32, False),  # a multiple of 128, not a power of two
+    (96, 192, torch.float64, False),  # not a multiple of 128
+    (1536, 3072, torch.float32, True),  # a multiple of 128, not a power of two: the prime-factor kernel
     (300, 1024, torch.float64, False),  # nfft != 2n
     (1024, 4096, torch.float32, False),  # nfft != 2n
     (1024, 2048, torch.float16, False),  # no half-precision kernel
@@ -128,21 +131,23 @@ def test_shared_memory_sizer():
     assert ct_fused.SMEM_LIMIT == 227 * 1024
 
 
-@pytest.mark.parametrize("dtype, largest", [(torch.float32, 16384), (torch.float64, 16384)])
+@pytest.mark.parametrize("dtype, largest", [(torch.float32, 20608), (torch.float64, 20608)])
 def test_gate_admits_the_same_frame_lengths(dtype, largest):
-    """The gate admits exactly the power-of-two frame lengths voxtpu's fused
-    gate takes, 128 to 16,384 in either dtype, every block of them fits the
-    card's shared memory, and a cluster has at most 4 blocks."""
+    """The gate admits exactly the frame lengths voxtpu's fused gate takes,
+    the multiples of 128 from 128 to 20,608 in either dtype (the powers of
+    two among them up to 16,384), every block of them fits the card's
+    shared memory, and a cluster has at most 4 blocks."""
     admitted = [n for n in range(1, 1 << 16) if ct_fused.ct_fused_supported(n, 2 * n, dtype)]
-    assert admitted == [1 << k for k in range(7, largest.bit_length())]
+    assert admitted == list(range(128, largest + 1, 128))
+    assert [n for n in admitted if n & (n - 1) == 0] == [1 << k for k in range(7, 15)]
     assert all(ct_fused.ct_fused_smem_bytes(n, dtype) <= ct_fused.SMEM_LIMIT for n in admitted)
     assert all(ct_fused.ct_fused_cluster(n, dtype) in (1, 2, 4) for n in admitted)
 
 
 def test_constants_mirror_the_cuda_source():
-    """The wrapper's points a thread, block floor, ceiling and per-dtype
-    largest frame of one block (above which a frame takes a cluster) are
-    csrc/ct_fused.cu's."""
+    """The wrapper's points a thread, block floor, largest frame (the
+    largest power of two: kMaxLog2) and per-dtype largest frame of one
+    block (above which a frame takes a cluster) are csrc/ct_fused.cu's."""
     src = CU.read_text()
 
     def const(name):
@@ -150,7 +155,8 @@ def test_constants_mirror_the_cuda_source():
 
     assert const("kPoints") == ct_fused._POINTS
     assert const("kMinBlockThreads") == ct_fused._MIN_BLOCK_THREADS
-    assert 1 << const("kMaxLog2") == ct_fused.MAX_N[torch.float32] == ct_fused.MAX_N[torch.float64]
+    assert const("kMaxN") == ct_fused.MAX_N[torch.float32] == ct_fused.MAX_N[torch.float64]
+    assert 1 << const("kMaxLog2") == max(n for n in range(128, const("kMaxN") + 1, 128) if n & (n - 1) == 0)
     assert 1 << const("kBlockLog2F32") == ct_fused._BLOCK_N[torch.float32]
     assert 1 << const("kBlockLog2F64") == ct_fused._BLOCK_N[torch.float64]
 

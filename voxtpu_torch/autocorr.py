@@ -11,12 +11,15 @@ Backends (voxtpu's names; the branch follows from the name and the shape
 alone, before any launch):
 - "ct_fused": kernel E (voxtpu_torch.ops.ct_fused) computes the power
   spectrum and the lags in one pass. It is what `backend=None` picks when
-  the shape passes `ct_fused_supported` (nfft == 2n, n a power of two from
-  128 to `MAX_N`, 16,384 in either dtype: voxtpu's gate on the frames that
-  reach it here, frames above 8,192 float32 and 4,096 float64 samples over
-  a thread-block cluster), as voxtpu picks it on a TPU; for CPU tensors
-  the kernel's plain version runs. An explicit "ct_fused" request for
-  another shape takes "fft".
+  the shape passes `ct_fused_supported` (voxtpu's gate: nfft == 2n, n a
+  multiple of 128 from 128 to `MAX_N`, 20,608, in either dtype), as voxtpu
+  picks it on a TPU; for CPU tensors the kernel's plain version runs. The
+  entry points pass nfft = next_pow2(2n), so the frames that reach it from
+  them are powers of two up to 16,384 (above 8,192 float32 and 4,096
+  float64 samples over a thread-block cluster). The other multiples of 128
+  reach kernel E only through `ct_fused_power_ac` itself, which runs its
+  prime-factor kernel. An explicit "ct_fused" request for another shape
+  takes "fft".
 - "ct_fused_x3": kernel X3 (voxtpu_torch.ops.ct_x3), the same
   decomposition as voxtpu's on the tensor cores in three bfloat16 passes,
   about 3e-6 of scale; opt-in. Float32 only on the card (float64 raises);

@@ -59,7 +59,10 @@
 // _model_ct_fused follows these steps in NumPy.
 //
 // Frames longer than one block holds (8192 in float32, 4096 in float64) run
-// over a thread-block cluster: see ct_fused_cluster_kernel below.
+// over a thread-block cluster: see ct_fused_cluster_kernel below. Frames
+// whose length is not a power of two (voxtpu's other multiples of 128, up
+// to 20,608) run ct_fused_pfa_kernel, a prime-factor split of n into a
+// power of two and an odd factor: see below.
 //
 // Registers a thread (ptxas -v for sm_90a, as chip_smoke.py's build prints
 // them), by n = 128 .. 8192: float32 104 114 128 128 128 127 119 (capped at
@@ -72,7 +75,9 @@
 // bench frame that is 2 blocks an SM in float32 (registers bind; 4 would
 // need at most 64 a thread), 1 in float64. At bench shapes it takes
 // 0.552 ms in float32, 2.9 times its bound (chip_smoke.py, NVIDIA H100
-// 80GB HBM3, 700 W).
+// 80GB HBM3, 700 W). The prime-factor kernel (lengths that are not powers
+// of two): 101-118 registers in float32 at 512 threads, 180-208 in float64
+// at 256, 0 bytes of stack frame and spill in all 18 instantiations.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -200,34 +205,70 @@ __device__ __forceinline__ typename Vec2<T>::type pack(Cx<T> a) {
   return {a.re, a.im};
 }
 
-// One Stockham pass of radix R over spans of Ns (Ns > 1) of an n-point
-// transform through the frame's buffer: butterflies j = t + q n/16 read
-// buf[j + r n/R] and write buf[(j - j mod Ns) R + j mod Ns + r Ns]. nt: the
-// table's n (w = e^{-2 pi i / 2 nt}); n itself but in a cluster's share.
-template <typename T, int R, bool kInv>
+// One Stockham pass of radix R over spans of Ns (Ns > 1 but in kRow) of an
+// n-point transform through the frame's buffer: butterflies j = t + q n/16
+// read buf[j + r n/R] and write buf[(j - j mod Ns) R + j mod Ns + r Ns]. nt:
+// the table's n (w = e^{-2 pi i / 2 nt}); n itself but in a cluster's share or
+// a prime-factor row. kRow, for the prime-factor kernel's rows: spans of 1
+// turn nothing, and a thread whose row lies past the frame's last (live
+// false) only meets the barriers. Both are compile-time off for the
+// power-of-two kernels: a run-time test there changed their registers and
+// cost the float32 cluster a sixth of its time (PERF.md, §6).
+template <typename T, int R, bool kInv, bool kRow = false>
 __device__ __forceinline__ void exchange_pass(Cx<T>* v, typename Vec2<T>::type* buf,
-                                              const typename Vec2<T>::type* tw, int t, int Ns, int n, int nt) {
+                                              const typename Vec2<T>::type* tw, int t, int Ns, int n, int nt,
+                                              bool live = true) {
   constexpr int G = kPoints / R;
   const int ft = n / kPoints, span = n / R;
+  if (!kRow || live) {
 #pragma unroll
-  for (int q = 0; q < G; ++q) {
+    for (int q = 0; q < G; ++q) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const auto a = buf[sw(t + q * ft + r * span)];
-      v[q * R + r] = {a.x, a.y};
+      for (int r = 0; r < R; ++r) {
+        const auto a = buf[sw(t + q * ft + r * span)];
+        v[q * R + r] = {a.x, a.y};
+      }
     }
   }
   __syncthreads();
+  if (!kRow || live) {
 #pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const int j = t + q * ft, jm = j & (Ns - 1);
-    twiddle<T, R, kInv>(v + q * R, tw, jm * (2 * nt / (Ns * R)));
-    dft<T, R, kInv, false, false>(v + q * R);
-    const int base = (j - jm) * R + jm;
+    for (int q = 0; q < G; ++q) {
+      const int j = t + q * ft, jm = j & (Ns - 1);
+      if (!kRow || Ns > 1) twiddle<T, R, kInv>(v + q * R, tw, jm * (2 * nt / (Ns * R)));
+      dft<T, R, kInv, false, false>(v + q * R);
+      const int base = (j - jm) * R + jm;
 #pragma unroll
-    for (int r = 0; r < R; ++r) buf[sw(base + r * Ns)] = pack(v[q * R + r]);
+      for (int r = 0; r < R; ++r) buf[sw(base + r * Ns)] = pack(v[q * R + r]);
+    }
   }
   __syncthreads();
+}
+
+// The split of the pair (k, n - k) from a = Z[k], b = Z[n-k] and w = w^k:
+// E = (Z[k] + conj Z[n-k]) / 2 and U = i w^k (Z[k] - conj Z[n-k]) / 2 give
+// P[k] = |E - U|^2 and P[n-k] = |E + U|^2. Each kernel stores the powers
+// before it packs W (packed_w): one helper returning W as well gave the
+// power-of-two kernels other registers and times.
+template <typename T>
+__device__ __forceinline__ void split_pair(typename Vec2<T>::type a, typename Vec2<T>::type b,
+                                           typename Vec2<T>::type w, T& pk, T& pn) {
+  const T er = (a.x + b.x) * T(0.5), ei = (a.y - b.y) * T(0.5);
+  const T o_r = (a.x - b.x) * T(0.5), o_i = (a.y + b.y) * T(0.5);
+  const T wo_r = w.x * o_r - w.y * o_i, wo_i = w.x * o_i + w.y * o_r;
+  const T ur = -wo_i, ui = wo_r;  // U = i w^k O
+  const T d1r = er - ur, d1i = ei - ui, d2r = er + ur, d2i = ei + ui;
+  pk = d1r * d1r + d1i * d1i;
+  pn = d2r * d2r + d2i * d2i;
+}
+
+// The inverse's packing W[k] = (P[k] + P[n-k]) + i w^{-k} (P[k] - P[n-k])
+// from P[k], P[n-k] and w = w^k; W[n-k] is packed_w(P[n-k], P[k], w^{n-k}),
+// w^{n-k} = -conj(w^k).
+template <typename T>
+__device__ __forceinline__ typename Vec2<T>::type packed_w(T pk, T pn, typename Vec2<T>::type w) {
+  const T s = pk + pn, d = pk - pn;
+  return {s + w.y * d, w.x * d};
 }
 
 template <typename T, int L>
@@ -294,17 +335,12 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, Plan<T, L>::kMinBlocks)
     const int k = t + r * span16;
     const V a = buf[sw(k)], bz = buf[sw((n - k) & (n - 1))];
     const V w = __ldg(tw + k);
-    const T er = (a.x + bz.x) * T(0.5), ei = (a.y - bz.y) * T(0.5);
-    const T o_r = (a.x - bz.x) * T(0.5), o_i = (a.y + bz.y) * T(0.5);
-    const T wo_r = w.x * o_r - w.y * o_i, wo_i = w.x * o_i + w.y * o_r;
-    const T ur = -wo_i, ui = wo_r;  // U = i w^k O
-    const T d1r = er - ur, d1i = ei - ui, d2r = er + ur, d2i = ei + ui;
-    const T pk = d1r * d1r + d1i * d1i;  // P[k]
-    const T pn = d2r * d2r + d2i * d2i;  // P[n-k]
+    T pk, pn;  // P[k], P[n-k]
+    split_pair<T>(a, bz, w, pk, pn);
     if (even) hr[k >> 1] = pk;
     if (r == 0) p_n = pn;
-    const T s = pk + pn, d = pk - pn;
-    v[r] = {s + w.y * d, w.x * d};
+    const V wk = packed_w<T>(pk, pn, w);
+    v[r] = {wk.x, wk.y};
   }
   if (live && t == 0) hr[n / 2] = p_n;
   __syncthreads();
@@ -434,17 +470,12 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, 1)
     const int qp = c == 0 ? (m - q) & (m - 1) : m - 1 - q;
     const V a = buf[sw(q)], bz = zp[sw(qp)];
     const V w = __ldg(tw + k);
-    const T er = (a.x + bz.x) * T(0.5), ei = (a.y - bz.y) * T(0.5);
-    const T o_r = (a.x - bz.x) * T(0.5), o_i = (a.y + bz.y) * T(0.5);
-    const T wo_r = w.x * o_r - w.y * o_i, wo_i = w.x * o_i + w.y * o_r;
-    const T ur = -wo_i, ui = wo_r;  // U = i w^k O
-    const T d1r = er - ur, d1i = ei - ui, d2r = er + ur, d2i = ei + ui;
-    const T pk = d1r * d1r + d1i * d1i;  // P[k]
-    const T pn = d2r * d2r + d2i * d2i;  // P[n-k]
+    T pk, pn;  // P[k], P[n-k]
+    split_pair<T>(a, bz, w, pk, pn);
     if (even) hr[k >> 1] = pk;
     if (r == 0) p_n = pn;
-    const T s = pk + pn, d = pk - pn;
-    v[r] = {s + w.y * d, w.x * d};
+    const V wk = packed_w<T>(pk, pn, w);
+    v[r] = {wk.x, wk.y};
   }
   if (c == 0 && t == 0) hr[n / 2] = p_n;
   if constexpr (C == 4) {
@@ -483,6 +514,221 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, 1)
     ar[to] = V{y.re * inv_N, y.im * inv_N};
   }
   cluster.sync();  // no block leaves while a peer reads its buffer
+}
+
+// Frames whose length n is not a power of two: n = N1 m with N1 = 2^Q
+// (128 .. 4096) and m odd (3 .. 161), voxtpu's multiples of 128 up to
+// 20,608. The same function as the kernels above: the frame packed into n/2
+// complex points z, the n-point complex transform Z, the split to P[k] =
+// |X[k]|^2 for k = 0 .. n, the even-spectrum packing W, its n-point inverse,
+// and the first n/2 complex outputs over N = 2n as the lags.
+//
+// Each n-point transform is a prime-factor (Good-Thomas) split of n =
+// N1 x m: since gcd(N1, m) = 1, with j1 = j mod N1, j2 = j mod m on the
+// time side and k = (m k1 + N1 k2) mod n on the frequency side,
+//   Z[k] = sum_{j1} w_N1^{j1 k1} sum_{j2} w_m^{j2 k2} z[j],
+// so no twiddles lie between the two axes. The frame lives in a buffer of
+// m rows of N1 points, row k2 (or j2) holding one N1-point transform:
+// 1. the m-point DFTs from the input: Y[k2][j1] = sum_i z[j1 + N1 i]
+//    w_m^{j2 k2}, j2 = (j1 + N1 i) mod m, over the n/2 nonzero points only
+//    (i with j1 + N1 i < n/2). A thread sums kPfaOuts outputs k2 of one
+//    column j1 at once, a warp's reads of z contiguous in j1. The roots
+//    w_m^e, e < m, sit in shared memory, taken from the table of w = e^{-2 pi
+//    i / N} (w_m = w^{2 N1}), so no sincos runs on the card;
+// 2. the N1-point FFTs along each row, in the radix-16 Stockham passes of
+//    the kernels above (N1 / 16 threads a row, 16 values a thread, the
+//    block's rows a round at a time);
+// 3. the split of each pair (k, n - k), k <= n/2, by one thread in place:
+//    k1 = k m^-1 mod N1 and k2 = k N1^-1 mod m (the host passes both
+//    inverses), the partner at (-k1, -k2); it writes P[k] and P[n - k] to
+//    the half spectrum and W[k] and W[n - k] over Z;
+// 4. the inverse N1-point FFTs along the rows;
+// 5. the inverse m-point DFTs: output j < n/2 sums V[k2][j mod N1]
+//    w_m^{-(j mod m) k2} over k2 (the even k2 and the odd in two sums),
+//    stored as ac[2j], ac[2j+1] over N: a warp's stores contiguous.
+// A direct m-point DFT costs m complex multiply-adds an output where an FFT
+// costs log m: at m = 157 about 8 n m operations a frame against the power
+// of two's 10 n log2 n. A simple kernel first: at 20,096 = 128 x 157 it
+// takes 8.401 ms for 3,130 float32 frames, 45 times the function's bound
+// (0.188 ms, its bytes) and 6.7 times the 1.26 ms that its own direct
+// DFTs' operations need (its index arithmetic and the roots' shared-memory
+// reads beside each multiply-add); at 2,176 = 128 x 17 2.675 ms for 28,932
+// frames, 14 times the function's bound (chip_smoke.py phase 14; PERF.md
+// has the times beside cuFFT's; NVIDIA H100 80GB HBM3, 700 W).
+// The buffer is the block's shared memory (n + m complex values: 165 KB at
+// 20,608 in float32), or, in float64 above 14,336 points, where n + m
+// values outgrow the 227 KB a block may have, a slice of a scratch buffer
+// in device memory that the wrapper allocates (kDev: one slice a block, the
+// blocks walking the frames; the slices of all blocks stay in L2). Within a
+// block __syncthreads orders the accesses to either.
+// Threads a block: float32 512 (at most 128 registers a thread; one block
+// an SM, its shared memory binds), float64 256 (up to 255 registers).
+template <typename T>
+constexpr int kPfaThreads = sizeof(T) == 4 ? 512 : 256;
+constexpr int kPfaOuts = 8;        // m-point DFT outputs a thread sums at once
+constexpr int kPfaMinLog2 = 7;     // N1 = 2^Q from 128 ...
+constexpr int kPfaMaxLog2 = 12;    // ... to 4096 (n = 4096 x 5 = 20,480)
+constexpr int kMaxN = 20608;       // voxtpu's largest frame: 128 x 161
+constexpr int kSmemLimit = 232448; // bytes of shared memory a block may have (227 KB)
+
+// The N1-point FFT (N1 = 2^Q) of every one of the m rows of buf, the
+// block's threads taking kPfaThreads / (N1 / 16) rows a round.
+template <typename T, int Q, bool kInv>
+__device__ __forceinline__ void row_ffts(typename Vec2<T>::type* buf, const typename Vec2<T>::type* tw, int m,
+                                         int n) {
+  constexpr int N1 = 1 << Q, ft = N1 / kPoints, rows = kPfaThreads<T> / ft;
+  constexpr int kPasses = (Q + 3) / 4, kLast = 1 << (Q - 4 * (kPasses - 1));
+  const int t = threadIdx.x % ft;
+  Cx<T> v[kPoints];
+#pragma unroll 1
+  for (int r0 = 0; r0 < m; r0 += rows) {
+    const int row = r0 + static_cast<int>(threadIdx.x) / ft;
+    const bool live = row < m;
+    auto* rb = buf + (live ? row : 0) * N1;
+    exchange_pass<T, 16, kInv, true>(v, rb, tw, t, 1, N1, n, live);
+    int Ns = 16;
+#pragma unroll 1
+    for (int p = 1; p < kPasses - 1; ++p, Ns *= 16) exchange_pass<T, 16, kInv, true>(v, rb, tw, t, Ns, N1, n, live);
+    exchange_pass<T, kLast, kInv, true>(v, rb, tw, t, Ns, N1, n, live);
+  }
+}
+
+template <typename T, int Q, bool kDev>
+__global__ void __launch_bounds__(kPfaThreads<T>, 1)
+    ct_fused_pfa_kernel(const T* __restrict__ x, const T* __restrict__ tw_raw, T* __restrict__ half,
+                        T* __restrict__ ac, T* __restrict__ scratch, int B, int m, int inv_m, int inv_n1) {
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kThreads = kPfaThreads<T>;
+  const int n = m << Q, nh = n / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* buf = kDev ? reinterpret_cast<V*>(scratch) + static_cast<long>(blockIdx.x) * n : reinterpret_cast<V*>(smem_raw);
+  V* roots = reinterpret_cast<V*>(smem_raw) + (kDev ? 0 : n);  // w_m^e, e < m
+  const V* tw = reinterpret_cast<const V*>(tw_raw);
+  for (int e = threadIdx.x; e < m; e += kThreads) roots[e] = pack(tw_at<T>(tw, 2 * N1 * e, n));
+  __syncthreads();
+  const int chunks = (m + kPfaOuts - 1) / kPfaOuts;
+  const int step = N1 % m;  // j2 gains this from row i to i + 1 of a column
+  const T inv_N = T(1) / static_cast<T>(2 * n);
+
+#pragma unroll 1
+  for (long frame = blockIdx.x; frame < B; frame += gridDim.x) {
+    // 1. Y[k2][j1] for k2 = k0 .. k0 + kPfaOuts - 1: e = j2 (k0 + c) mod m.
+    const V* z = reinterpret_cast<const V*>(x + frame * n);
+    for (int item = threadIdx.x; item < chunks * N1; item += kThreads) {
+      const int j1 = item & (N1 - 1), k0 = (item >> Q) * kPfaOuts;
+      const int dk = (step * k0) % m;
+      int j2 = j1 % m, e0 = (j2 * k0) % m;
+      Cx<T> acc[kPfaOuts];
+#pragma unroll
+      for (int c = 0; c < kPfaOuts; ++c) acc[c] = {T(0), T(0)};
+#pragma unroll 1
+      for (int j = j1; j < nh; j += N1) {
+        const V a = __ldg(z + j);
+        const Cx<T> zj = {a.x, a.y};
+        int e = e0;
+#pragma unroll
+        for (int c = 0; c < kPfaOuts; ++c) {
+          const V w = roots[e];
+          acc[c] = cadd(acc[c], cmul(zj, Cx<T>{w.x, w.y}));
+          e += j2;
+          e -= e >= m ? m : 0;
+        }
+        j2 += step;
+        j2 -= j2 >= m ? m : 0;
+        e0 += dk;
+        e0 -= e0 >= m ? m : 0;
+      }
+#pragma unroll
+      for (int c = 0; c < kPfaOuts; ++c) {
+        if (k0 + c < m) buf[(k0 + c) * N1 + sw(j1)] = pack(acc[c]);
+      }
+    }
+    __syncthreads();
+    // 2. Z[k2][k1]: the rows' N1-point FFTs.
+    row_ffts<T, Q, false>(buf, tw, m, n);
+
+    // 3. The split of each pair (k, n - k), in place.
+    T* hr = half + frame * (nh + 1);
+    for (int k = threadIdx.x; k <= nh; k += kThreads) {
+      const int k1 = (k * inv_m) & (N1 - 1), k2 = (k * inv_n1) % m;
+      const int ia = k2 * N1 + sw(k1), ib = (k2 == 0 ? 0 : m - k2) * N1 + sw((N1 - k1) & (N1 - 1));
+      const V a = buf[ia], bz = buf[ib];
+      const V w = __ldg(tw + k);
+      T pk, pn;  // P[k], P[n-k]
+      split_pair<T>(a, bz, w, pk, pn);
+      if ((k & 1) == 0) {
+        hr[k >> 1] = pk;
+        if (2 * k != n) hr[(n - k) >> 1] = pn;
+      }
+      buf[ia] = packed_w<T>(pk, pn, w);                                    // W[k]
+      if (k != 0 && 2 * k != n) buf[ib] = packed_w<T>(pn, pk, V{-w.x, w.y});  // W[n-k]
+    }
+    __syncthreads();
+    // 4. V[k2][j1]: the rows' inverse FFTs.
+    row_ffts<T, Q, true>(buf, tw, m, n);
+
+    // 5. Outputs j < n/2: sum over k2 of V[k2][j1] w_m^{-j2 k2}, the even
+    // and the odd k2 in two sums (m is odd: the last term is even's).
+    V* ar = reinterpret_cast<V*>(ac + frame * n);
+    for (int j = threadIdx.x; j < nh; j += kThreads) {
+      const int j2 = j % m;
+      const V* col = buf + sw(j & (N1 - 1));
+      Cx<T> y0 = {T(0), T(0)}, y1 = {T(0), T(0)};
+      int e = 0;
+#pragma unroll 1
+      for (int k2 = 0; k2 < m; k2 += 2) {
+        const V a = col[k2 * N1], w = roots[e];
+        y0 = cadd(y0, cmul(Cx<T>{a.x, a.y}, Cx<T>{w.x, -w.y}));
+        e += j2;
+        e -= e >= m ? m : 0;
+        if (k2 + 1 < m) {
+          const V b = col[(k2 + 1) * N1], u = roots[e];
+          y1 = cadd(y1, cmul(Cx<T>{b.x, b.y}, Cx<T>{u.x, -u.y}));
+          e += j2;
+          e -= e >= m ? m : 0;
+        }
+      }
+      const Cx<T> y = cadd(y0, y1);
+      ar[j] = V{y.re * inv_N, y.im * inv_N};
+    }
+    __syncthreads();  // the buffer is the next frame's
+  }
+}
+
+// The Good-Thomas kernel at N1 = 2^Q; kDev: the buffer in `scratch`, one
+// slice of n complex values for each of `blocks` blocks.
+template <typename T, int Q, bool kDev>
+int launch_pfa(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int m, int blocks,
+               cudaStream_t stream) {
+  constexpr int N1 = 1 << Q;
+  int inv_m = 1, inv_n1 = 1;  // m^-1 mod N1 and N1^-1 mod m
+  while ((inv_m * m) % N1 != 1) ++inv_m;
+  while ((inv_n1 * N1) % m != 1) ++inv_n1;
+  const auto kernel = ct_fused_pfa_kernel<T, Q, kDev>;
+  const size_t smem = static_cast<size_t>(kDev ? m : N1 * m + m) * sizeof(typename Vec2<T>::type);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = kDev && blocks < B ? blocks : B;
+  kernel<<<grid, kPfaThreads<T>, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(tw),
+                                                static_cast<T*>(half), static_cast<T*>(ac), static_cast<T*>(scratch),
+                                                B, m, inv_m, inv_n1);
+  return static_cast<int>(cudaSuccess);
+}
+
+template <typename T, bool kDev>
+int launch_pfa_q(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int q, int m,
+                 int blocks, cudaStream_t s) {
+  switch (q) {
+    case 7: return launch_pfa<T, 7, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 8: return launch_pfa<T, 8, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 9: return launch_pfa<T, 9, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 10: return launch_pfa<T, 10, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 11: return launch_pfa<T, 11, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    default: return launch_pfa<T, 12, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+  }
 }
 
 template <typename T, int L>
@@ -545,22 +791,37 @@ int launch_shape(const void* x, const void* tw, void* half, void* ac, int B, cud
 }
 
 template <typename T>
-int launch(const void* x, const void* tw, void* half, void* ac, int B, int n, void* stream) {
-  if (n < 128 || n > (1 << kMaxLog2) || (n & (n - 1)) != 0 || B < 0) {
+int launch(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int n, int blocks,
+           void* stream) {
+  if (n < 128 || n > kMaxN || n % 128 != 0 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pow2 = (n & (n - 1)) == 0;
+  const int q = __builtin_ctz(static_cast<unsigned>(n)), m = n >> q;
+  // Past the block's shared memory (float64 only): the buffer in scratch.
+  const bool dev = !pow2 && static_cast<size_t>(n + m) * sizeof(typename Vec2<T>::type) > kSmemLimit;
+  if (pow2 ? q > kMaxLog2 : (q < kPfaMinLog2 || q > kPfaMaxLog2 || (dev && (scratch == nullptr || blocks < 1)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
     int err = 0;
-    switch (__builtin_ctz(static_cast<unsigned>(n))) {
-      case 7: err = launch_shape<T, 7>(x, tw, half, ac, B, s); break;
-      case 8: err = launch_shape<T, 8>(x, tw, half, ac, B, s); break;
-      case 9: err = launch_shape<T, 9>(x, tw, half, ac, B, s); break;
-      case 10: err = launch_shape<T, 10>(x, tw, half, ac, B, s); break;
-      case 11: err = launch_shape<T, 11>(x, tw, half, ac, B, s); break;
-      case 12: err = launch_shape<T, 12>(x, tw, half, ac, B, s); break;
-      case 13: err = launch_shape<T, 13>(x, tw, half, ac, B, s); break;
-      default: err = launch_shape<T, 14>(x, tw, half, ac, B, s); break;
+    if (!pow2) {
+      if constexpr (sizeof(T) == 8) {
+        err = dev ? launch_pfa_q<T, true>(x, tw, half, ac, scratch, B, q, m, blocks, s)
+                  : launch_pfa_q<T, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
+      } else {
+        err = launch_pfa_q<T, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
+      }
+    } else {
+      switch (q) {
+        case 7: err = launch_shape<T, 7>(x, tw, half, ac, B, s); break;
+        case 8: err = launch_shape<T, 8>(x, tw, half, ac, B, s); break;
+        case 9: err = launch_shape<T, 9>(x, tw, half, ac, B, s); break;
+        case 10: err = launch_shape<T, 10>(x, tw, half, ac, B, s); break;
+        case 11: err = launch_shape<T, 11>(x, tw, half, ac, B, s); break;
+        case 12: err = launch_shape<T, 12>(x, tw, half, ac, B, s); break;
+        case 13: err = launch_shape<T, 13>(x, tw, half, ac, B, s); break;
+        default: err = launch_shape<T, 14>(x, tw, half, ac, B, s); break;
+      }
     }
     if (err != 0) return err;
   }
@@ -569,12 +830,15 @@ int launch(const void* x, const void* tw, void* half, void* ac, int B, int n, vo
 
 }  // namespace
 
-VT_EXPORT int vt_ct_fused_f32(const void* x, const void* tw, void* half, void* ac, int B, int n,
-                              void* stream) {
-  return launch<float>(x, tw, half, ac, B, n, stream);
+// scratch: null, or (blocks, n) complex values of the input dtype, the
+// buffer of a float64 frame that is not a power of two and outgrows shared
+// memory (ops/ct_fused.py allocates it where `ct_fused_layout` says "device").
+VT_EXPORT int vt_ct_fused_f32(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int n,
+                              int blocks, void* stream) {
+  return launch<float>(x, tw, half, ac, scratch, B, n, blocks, stream);
 }
 
-VT_EXPORT int vt_ct_fused_f64(const void* x, const void* tw, void* half, void* ac, int B, int n,
-                              void* stream) {
-  return launch<double>(x, tw, half, ac, B, n, stream);
+VT_EXPORT int vt_ct_fused_f64(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int n,
+                              int blocks, void* stream) {
+  return launch<double>(x, tw, half, ac, scratch, B, n, blocks, stream);
 }

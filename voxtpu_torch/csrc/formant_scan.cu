@@ -64,7 +64,7 @@
 namespace {
 
 constexpr int kSlots = 6;  // FormantSlots = [Option<Resonance>; 6] (spectrum.rs:228)
-constexpr int kMaxL = 16;
+constexpr int kMaxL = 128;  // estimates: voxtpu's LANES (formant_scan_pallas.py:31)
 constexpr int kChunk = 64;   // frames a chunk (ops/formant_scan.py CHUNK)
 constexpr int kWarmup = 96;  // frames stepped from the seed before a chunk (ops/formant_scan.py WARMUP)
 constexpr int kWarps = 4;    // chunks (warps) a speculation block
@@ -108,7 +108,9 @@ __device__ __forceinline__ T pick(const T (&v)[kSlots], int i) {
 }
 
 // The carry: estimates 0..5. Write-back never reaches estimate 6 or above,
-// so estimates 6..L-1 stay the seed; slots at or above L are unused.
+// and steps 2 and 3 read estimates 0..5 alone, so estimates 6..L-1 stay the
+// seed and change nothing: an output column at or above 6 is its seed in
+// every frame. Slots at or above L are unused.
 template <typename T>
 struct Carry {
   T f[kSlots];
@@ -413,6 +415,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   run_frames<T, kWrite>(c, rf, rb, out_f, out_b, t0, t1, R, L, lane, seed_f, seed_b, nullptr);
 }
 
+// Columns 32 .. L-1 of every frame, where L > 32: their seeds (estimates at
+// or above 6 never leave the seed, see Carry). The speculation pass writes
+// columns below 32, one a lane, and repair rewrites columns below 6 alone;
+// a kernel of its own keeps this loop out of theirs.
+template <typename T>
+__global__ void __launch_bounds__(kRepairThreads)
+    formant_scan_fill(const T* __restrict__ ef0, const T* __restrict__ eb0, T* __restrict__ out_f,
+                      T* __restrict__ out_b, long F, int L) {
+  const int w = L - 32;
+  for (long i = static_cast<long>(blockIdx.x) * kRepairThreads + threadIdx.x; i < F * w;
+       i += static_cast<long>(gridDim.x) * kRepairThreads) {
+    const long t = i / w;
+    const int col = 32 + static_cast<int>(i - t * w);
+    out_f[t * L + col] = ef0[col];
+    out_b[t * L + col] = eb0[col];
+  }
+}
+
 // Pass 2: one block a recording. Its threads flag, kRepairThreads chunks at
 // a time, the chunks whose speculated entry carry differs from the stored
 // output before them; warp 0 then walks the flagged chunks in order.
@@ -510,6 +530,12 @@ int launch(const void* rf, const void* rb, const void* ef0, const void* eb0, voi
     formant_scan_repair<T><<<files, kRepairThreads, 0, s>>>(rf_, rb_, ef_, eb_, static_cast<T*>(out_f),
                                                             static_cast<T*>(out_b), static_cast<const T*>(spec),
                                                             stats_, file_len, R, L, per_file);
+    if (L > 32) {
+      const long cells = static_cast<long>(F) * (L - 32);
+      const int blocks = cells < 1024L * kRepairThreads ? vt::blocks_for(cells, kRepairThreads) : 1024;
+      formant_scan_fill<T><<<blocks, kRepairThreads, 0, s>>>(ef_, eb_, static_cast<T*>(out_f), static_cast<T*>(out_b),
+                                                            F, L);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -518,7 +544,7 @@ int launch(const void* rf, const void* rb, const void* ef0, const void* eb0, voi
 
 // spec: (files * ceil(file_len / 64), 12) scratch of the input dtype; stats:
 // null, or 3 int64 (chunks, chunks re-run, frames re-run). Two kernels on
-// `stream`.
+// `stream`, and a third for L > 32 (formant_scan_fill). L <= 128.
 VT_EXPORT int vt_formant_scan_f32(const void* rf, const void* rb, const void* ef0, const void* eb0,
                                   void* out_f, void* out_b, void* spec, void* stats, int F, int R, int L,
                                   int file_len, void* stream) {

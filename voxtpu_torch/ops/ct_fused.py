@@ -1,16 +1,20 @@
 """Kernel E: the half power spectrum and the autocorrelation lags of
-power-of-two frames in one pass (csrc/ct_fused.cu; replaces
+(B, n) frames in one pass (csrc/ct_fused.cu; replaces
 voxtpu/ops/ct_fused_pallas.py's `ct_fused_power_ac`).
 
 `ct_fused_power_ac_plain` is the PyTorch version: rfft to 2n points, power,
 irfft. `ct_fused_power_ac` runs it for CPU tensors and launches the kernel
-for CUDA tensors: the real frame packed into n/2 complex points, two
-n-point transforms of radix-16 passes in registers, 16 complex values a
-thread; a frame longer than one block holds (8192 in float32, 4096 in
-float64) spreads over a thread-block cluster of n / that blocks, each one
-residue class of the spectrum. `ct_fused_supported` is the shape gate:
-which shapes the kernel takes follows from (n, nfft, dtype) alone, never
-from a failed launch.
+for CUDA tensors: the real frame packed into n/2 complex points and two
+n-point complex transforms. A power-of-two n runs radix-16 passes in
+registers, 16 complex values a thread; a frame longer than one block holds
+(8192 in float32, 4096 in float64) spreads over a thread-block cluster of
+n / that blocks, each one residue class of the spectrum. Any other n,
+N1 x m with N1 a power of two and m odd, runs a prime-factor split: direct
+m-point DFTs and N1-point radix-16 FFTs over a buffer of the whole frame, in
+shared memory, or in float64 above 14,336 points in a scratch buffer in
+device memory (`ct_fused_layout`). `ct_fused_supported` is the shape gate,
+voxtpu's: which shapes the kernel takes follows from (n, nfft, dtype)
+alone, never from a failed launch.
 """
 
 from __future__ import annotations
@@ -21,44 +25,73 @@ import numpy as np
 import torch
 
 from voxtpu_torch.ops import kernels
+from voxtpu_torch.ops.ct_x3 import _MAX_N
 
-__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_cluster", "ct_fused_smem_bytes", "ct_fused_supported",
-           "ct_fused_power_ac_plain", "ct_fused_power_ac"]
+__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_cluster", "ct_fused_layout", "ct_fused_smem_bytes",
+           "ct_fused_supported", "ct_fused_power_ac_plain", "ct_fused_power_ac"]
 
-SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB)
-# The largest frame the kernel takes, per dtype (csrc/ct_fused.cu's
-# kMaxLog2): voxtpu's gate on power-of-two frames, 128 to 16,384. Fixed, so
-# that which frames take the kernel and which take cuFFT does not depend on
-# the kernel's shared-memory use.
-MAX_N = {torch.float32: 16384, torch.float64: 16384}
-# The largest frame one block holds (kBlockLog2F32, kBlockLog2F64); a
-# longer one takes a cluster of n / this blocks.
+SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB; csrc/ct_fused.cu kSmemLimit)
+# The largest frame the kernel takes, per dtype (csrc/ct_fused.cu's kMaxN):
+# voxtpu's gate, whose VMEM budget stops at 128 x 161 = 20,608 (the power
+# of two frames stop at 16,384, kMaxLog2). Fixed, so that which frames take
+# the kernel and which take cuFFT does not depend on the kernel's
+# shared-memory use.
+MAX_N = {torch.float32: _MAX_N, torch.float64: _MAX_N}
+# The largest power-of-two frame one block holds (kBlockLog2F32,
+# kBlockLog2F64); a longer one takes a cluster of n / this blocks.
 _BLOCK_N = {torch.float32: 8192, torch.float64: 4096}
 _POINTS = 16  # complex values a thread holds (csrc/ct_fused.cu's kPoints)
 _MIN_BLOCK_THREADS = 128  # frames of fewer than 2048 points share a block up to this (kMinBlockThreads)
 
 
+def _pow2(n: int) -> bool:
+    return n & (n - 1) == 0
+
+
 def ct_fused_cluster(n: int, dtype: torch.dtype) -> int:
-    """Blocks a frame of n takes: 1 up to the largest frame one block holds,
-    n / that above it (a thread-block cluster of 2 or 4)."""
-    return max(1, int(n) // _BLOCK_N[dtype])
+    """Blocks a frame of n takes: 1 up to the largest power-of-two frame one
+    block holds, n / that above it (a thread-block cluster of 2 or 4); 1
+    for a frame that is not a power of two."""
+    n = int(n)
+    return max(1, n // _BLOCK_N[dtype]) if _pow2(n) else 1
+
+
+def _odd_part(n: int) -> int:
+    return n // (n & -n)
+
+
+def ct_fused_layout(n: int, dtype: torch.dtype) -> str:
+    """Where a frame's buffer lives: "registers" for a power of two (its
+    values in registers, exchanged through shared memory); else "shared",
+    or "device" where its n + m complex values (the frame and the m roots
+    of unity, n = N1 m) outgrow SMEM_LIMIT: float64 above 14,336 points."""
+    n = int(n)
+    if _pow2(n):
+        return "registers"
+    itemsize = 8 if dtype == torch.float64 else 4
+    return "shared" if (n + _odd_part(n)) * 2 * itemsize <= SMEM_LIMIT else "device"
 
 
 def ct_fused_smem_bytes(n: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block: each of its frames' exchange
-    buffer of n complex values, or of n / cluster in a cluster's block
-    (csrc/ct_fused.cu)."""
+    buffer of n complex values, or of n / cluster in a cluster's block; for
+    a frame that is not a power of two, n = N1 m, the frame and the m roots
+    of unity, or the roots alone in the "device" layout (csrc/ct_fused.cu)."""
+    n = int(n)
     itemsize = 8 if dtype == torch.float64 else 4
-    m = int(n) // ct_fused_cluster(n, dtype)
+    layout = ct_fused_layout(n, dtype)
+    if layout != "registers":
+        return ((n if layout == "shared" else 0) + _odd_part(n)) * 2 * itemsize
+    m = n // ct_fused_cluster(n, dtype)
     frames = max(1, _MIN_BLOCK_THREADS // (m // _POINTS))
     return frames * m * 2 * itemsize
 
 
 def ct_fused_supported(n: int, nfft: int, dtype: torch.dtype) -> bool:
-    """The kernel takes nfft == 2n, n a power of two from 128 to MAX_N
-    (16,384 in either dtype): voxtpu's gate on power-of-two frames."""
+    """The kernel takes nfft == 2n, n a multiple of 128 from 128 to MAX_N
+    (20,608 in either dtype): voxtpu's gate (ct_fused_pallas.py:79-89)."""
     n, nfft = int(n), int(nfft)
-    return dtype in MAX_N and nfft == 2 * n and 128 <= n <= MAX_N[dtype] and n & (n - 1) == 0
+    return dtype in MAX_N and nfft == 2 * n and n % 128 == 0 and 128 <= n <= MAX_N[dtype]
 
 
 def ct_fused_power_ac_plain(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,7 +129,13 @@ def ct_fused_power_ac(x: torch.Tensor, nfft: int) -> tuple[torch.Tensor, torch.T
         x = x.clone()
     half = torch.empty((B, n // 2 + 1), dtype=x.dtype, device=x.device)
     ac = torch.empty((B, n), dtype=x.dtype, device=x.device)
-    kernels.launch("vt_ct_fused", x.dtype, x, _twiddles(n, x.dtype, x.device), half, ac, B, n)
+    scratch, blocks = 0, 0
+    if ct_fused_layout(n, x.dtype) == "device":
+        # A frame's buffer for each block, one block an SM (its 256 threads
+        # take up to 255 registers each), the blocks walking the frames.
+        blocks = max(1, min(B, torch.cuda.get_device_properties(x.device).multi_processor_count))
+        scratch = torch.empty((blocks, n, 2), dtype=x.dtype, device=x.device)
+    kernels.launch("vt_ct_fused", x.dtype, x, _twiddles(n, x.dtype, x.device), half, ac, scratch, B, n, blocks)
     ct_fused_power_ac.launches += 1
     return half, ac
 

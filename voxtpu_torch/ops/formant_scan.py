@@ -8,8 +8,9 @@
 for CUDA tensors: a chunked speculative scan with exact repair, two device
 kernels a call (chunks of CHUNK frames each stepped from the seed after a
 WARMUP-frame warm-up, then a pass a recording that re-runs, in order, the
-chunks whose entry carry was wrong). Both are exact: the step only compares
-and copies values, and repair compares carries bit for bit.
+chunks whose entry carry was wrong; past 32 estimates a third writes the
+columns that hold their seed in every frame). Both are exact: the step
+only compares and copies values, and repair compares carries bit for bit.
 
 `formant_scan_check` checks a scan's output over every frame with one
 batched step: it is how a kernel's output is held to the serial scan at
@@ -24,7 +25,7 @@ from voxtpu_torch.ops import kernels
 
 __all__ = ["CHUNK", "WARMUP", "formant_scan_plain", "formant_scan", "formant_scan_check"]
 
-_MAX_L = 16  # csrc/formant_scan.cu kMaxL
+_MAX_L = 128  # csrc/formant_scan.cu kMaxL: voxtpu's LANES (formant_scan_pallas.py:31)
 CHUNK = 64  # csrc/formant_scan.cu kChunk: frames a speculated chunk
 WARMUP = 96  # csrc/formant_scan.cu kWarmup: frames stepped from the seed before a chunk
 _SPEC = 12  # csrc/formant_scan.cu kSpec: a chunk's entry carry, 6 frequencies and 6 bandwidths

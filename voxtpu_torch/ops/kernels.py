@@ -51,7 +51,7 @@ _SIGNATURES = {
     "vt_burg": "ppppiiiiii",
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppppiiii",
-    "vt_ct_fused": "ppppii",
+    "vt_ct_fused": "pppppiii",
     "vt_viterbi": "ppppppppiiiiidd",
     "vt_pitch_pre": "pppppiiiddd",
     "vt_polish": "ppppppiiid",
