@@ -13,7 +13,8 @@ checkout. Phases, each an uncaught exception when it fails:
 2. build of the nine kernels from voxtpu_torch/csrc with nvcc, with the
    compiler's register report; every instantiation of kernels A-F, P and
    X3 (E's thread-block cluster ones, E's prime-factor kernel for the
-   lengths that are not powers of two and B's device layout among them)
+   lengths that are not powers of two and B's cluster and device layouts
+   among them)
    must show 0 bytes of stack frame and spill (STACK_CHECKED); F's shared
    memory a block at C = 33 and 128 in both dtypes; beside it, the build
    of tools/burg_rates.cu's rate probes (phase 10). Then a second process
@@ -45,8 +46,10 @@ checkout. Phases, each an uncaught exception when it fails:
    (BURG_LARGE): in each dtype the register layout at up to its 512
    threads a block, its largest frame included, then the rows in shared
    memory above that, up to the largest frame the kernel before it took,
-   then the rows in device memory (32,768 and 65,536 float32, 16,384 and
-   32,768 float64); each case must take the layout it names; (3d, in the
+   then the rows over a thread-block cluster of 2, 4 and 8 blocks (32,768,
+   65,536 and 131,072 float32, 16,384, 32,768 and 65,536 float64) up to
+   its largest frame, then the rows in device memory at the next length;
+   each case must take the layout it names; (3d, in the
    side process) B, C and P at N = 33, 64 and 128 (LPC orders to 127,
    ORDER_NS) against their plain versions in both dtypes (`check_orders`);
 4. the CLI path: `analyze` in float32 on the card, with every kernel's
@@ -202,8 +205,11 @@ checkout. Phases, each an uncaught exception when it fails:
    phase 5's rule; float64 on the card against the plain CPU path over
    the first 2 s; E in float64 at 8,192 and 16,384 on the recording's
    frames (clusters of 2 and 4 blocks) and B at the 32,768 path's frames
-   (the rows in device memory) in both dtypes against their plain
-   versions, timed beside their bounds (E beside cuFFT too).
+   in both dtypes and at the 16,384 path's in float64 (the rows over a
+   thread-block cluster), and at the first length past the cluster's
+   reach in both dtypes (the rows in device memory), against their plain
+   versions, timed beside their bounds (E beside cuFFT too; B with its
+   cluster size, registers and spill).
 
 Each phase prints the seconds it took.
 
@@ -302,12 +308,17 @@ RATE_PROBES = {"cvt_f64_f32": 0, "dfma_f64": 1, "lds_32bit": 2, "cvt_with_dfma":
 # (512 threads x its width c, plus 1), then the rows in shared memory above
 # it and at the largest frame the one-block-of-256 kernel that this one
 # replaced took (2 n values and its static shared memory within the 232,448
-# bytes a block may take), then the rows in device memory above that.
+# bytes a block may take), then the rows over a thread-block cluster above
+# that (float32: 32,768 over 2 blocks, 65,536 over 4, 131,072 over 8;
+# float64: 16,384 over 2, 32,768 over 4, 65,536 over 8) up to its largest
+# frame (8 blocks), then the rows in device memory at the next length.
 BURG_LARGE = (
     ("float32", 16384, 256, "registers"), ("float32", 17921, 64, "registers"), ("float32", 20480, 256, "shared"),
-    ("float32", 28927, 16, "shared"), ("float32", 32768, 256, "device"), ("float32", 65536, 64, "device"),
+    ("float32", 28927, 16, "shared"), ("float32", 32768, 256, "cluster"), ("float32", 65536, 64, "cluster"),
+    ("float32", 131072, 32, "cluster"), ("float32", 225793, 16, "cluster"), ("float32", 225794, 16, "device"),
     ("float64", 11025, 256, "registers"), ("float64", 11777, 64, "registers"), ("float64", 12288, 256, "shared"),
-    ("float64", 14431, 16, "shared"), ("float64", 16384, 256, "device"), ("float64", 32768, 64, "device"),
+    ("float64", 14431, 16, "shared"), ("float64", 16384, 256, "cluster"), ("float64", 32768, 64, "cluster"),
+    ("float64", 65536, 32, "cluster"), ("float64", 112897, 16, "cluster"), ("float64", 112898, 16, "device"),
 )
 
 # The kernels whose build must show 0 bytes of stack frame and spill (phase
@@ -318,13 +329,13 @@ BURG_LARGE = (
 # other lengths one a power-of-two factor N1 = 128 .. 4096 (the buffer in
 # shared memory), in float64 also with the buffer in device memory; A: one in
 # each dtype; B: three in each dtype (its register width, the rows in shared
-# memory, the rows in device memory); C: two in each dtype (N = 14 and the
+# memory, the rows in device memory) and the cluster layout's kernel in each; C: two in each dtype (N = 14 and the
 # capacity, N <= 128); P: two in each dtype (N = 14 in registers, any N <=
 # 128); F: the cost
 # pre-pass in each dtype, and the chain in each dtype with and without its
 # clock probe; X3: one kernel for every n its gate admits.
-STACK_CHECKED = {"formant_scan": 6, "ct_fused": 34, "refine_kernel": 2, "burg_kernel": 6, "roots_kernel": 4,
-                 "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
+STACK_CHECKED = {"formant_scan": 6, "ct_fused": 34, "refine_kernel": 2, "burg_kernel": 6, "burg_cluster_kernel": 2,
+                 "roots_kernel": 4, "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
 # coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
 # own limit of order 127 (voxtpu/ops/burg_pallas.py:87-88).
@@ -2993,22 +3004,33 @@ def large_config(frame_len: int):
 
 
 # Phase 16's frame lengths: 16,384 (kernel E over a cluster of 2 blocks in
-# float32, 4 in float64; kernel B's register layout in float32, its device
-# layout in float64) and 32,768 (past E's gate: cuFFT; B's device layout).
+# float32, 4 in float64; kernel B's register layout in float32, over a
+# cluster of 2 blocks in float64) and 32,768 (past E's gate: cuFFT; B over
+# a cluster of 2 blocks in float32, 4 in float64).
 LARGE_NS = (16384, 32768)
 
 
+# Phase 16's kernel B cases on the recording's frames (hop n / 4): (frame
+# length, dtype name, the large path whose launches it reports or None).
+# The path's lengths take the cluster layout; the first length past the
+# cluster's reach (the device layout) is timed for the record.
+LARGE_BURG = ((32768, "float32", 32768), (32768, "float64", 32768), (16384, "float64", 16384),
+              (225794, "float32", None), (112898, "float64", None))
+
+
 def check_large_frames(signal: np.ndarray, sig32, sig64, card: str, checks: Checks, run_counted, expect_launches,
-                       cvt_s: float, dev) -> dict:
+                       cvt_s: float, build_log: str, dev) -> dict:
     """Phase 16: `analyze` at LARGE_44K over the 126 tiles at each of
     LARGE_NS in float32, counted (E launched once at 16,384 and not at
     32,768, G, A-D and P once, F never), healthy, end to end; float32
     against float64 on the card within the budgets by phase 5's rule;
     float64 on the card against the plain CPU path over the first 2 s.
     Then kernel E in float64 at 8,192 and 16,384 on the recording's frames
-    (clusters of 2 and 4 blocks) and kernel B at the 32,768 path's frames
-    (the rows in device memory), each against its plain version and timed
-    beside its bound (E beside cuFFT too). Returns the phase's numbers."""
+    (clusters of 2 and 4 blocks) and kernel B at LARGE_BURG's lengths (the
+    paths' over a thread-block cluster, then the device layout past it),
+    each against its plain version and timed beside its bound (E beside
+    cuFFT too; B with its cluster size, registers and spill). Returns the
+    phase's numbers."""
     import torch
 
     from voxtpu_torch.frame import frame_signal
@@ -3057,29 +3079,41 @@ def check_large_frames(signal: np.ndarray, sig32, sig64, card: str, checks: Chec
               f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, cuFFT {v['library_ms']:.3f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} [{card}]")
         del x
-    # B at the 32,768 path's frames, the rows in device memory, both dtypes.
+    # B at LARGE_BURG's lengths: the paths' over a cluster, the next past it.
     res["burg"] = {}
-    n = 32768
-    for dt, launches in ((torch.float32, "launches"), (torch.float64, "launches_f64")):
+    regs = {**kernel_registers(build_log, "burg_kernel"), **kernel_registers(build_log, "burg_cluster_kernel")}
+    spills = {**stack_frames(build_log, "burg_kernel"), **stack_frames(build_log, "burg_cluster_kernel")}
+    for n, dname, path in LARGE_BURG:
+        dt = getattr(torch, dname)
         bx = hann_windowed(frame_signal(sig64.to(dt), n, n // 4)).contiguous()
         config = burg.launch_config(n, dt)
-        tag = f"{bx.shape[0]} frames of {n}, {'f64' if dt == torch.float64 else 'f32'}, {config}"
-        checks.true(f"burg layout [{tag}]", config.rows == "device", "(rows in device memory wanted)")
+        want = "cluster" if path else "device"
+        short = "f64" if dt == torch.float64 else "f32"
+        tag = f"{bx.shape[0]} frames of {n}, {short}, {config}"
+        checks.true(f"burg layout [{tag}]", config.rows == want, f"(rows in {want} wanted)")
         ck, sk = burg.burg(bx, 13)
         cp, sp = burg.burg_plain(bx, 13)
         err = checks.close(f"burg coeffs [{tag}]", ck, cp, *burg_tol(dt))
         checks.equal(f"burg status [{tag}]", sk, sp)
         del ck, sk, cp, sp
+        # The instantiation's mangled name: burg_cluster_kernel<T>, or
+        # burg_kernel<T, 0, kRowsDevice>.
+        t = "d" if dt == torch.float64 else "f"
+        inst = f"burg_cluster_kernelI{t}E" if want == "cluster" else f"burg_kernelI{t}Li0ELi{burg.ROWS[want]}E"
         bound_cvt = burg_bound(bx, 13, cvt_s)
         v = {"ms": event_ms(lambda: burg.burg(bx, 13)), "plain_ms": event_ms(lambda: burg.burg_plain(bx, 13), runs=3),
              "bound_ms": burg_bound(bx, 13)[0], "bound_cvt_ms": bound_cvt[0], "bound_by": bound_cvt[1],
              "library_ms": None, "max_abs_err": err, "frames": bx.shape[0], "n": n, "launch": config._asdict(),
-             "scratch_bytes": bx.shape[0] * 2 * config.threads * config.width * bx.element_size(),
-             "launches": res["paths"][n][launches]["burg"]}
-        res["burg"][f"n{n}_{'f64' if dt == torch.float64 else 'f32'}"] = v
+             "registers": next((r for k, r in regs.items() if inst in k), None),
+             "stack_spill": next((f for k, f in spills.items() if inst in k), None),
+             "launches": res["paths"][path]["launches" if dt == torch.float32 else "launches_f64"]["burg"]
+             if path else None}
+        if want == "device":
+            v["scratch_bytes"] = bx.shape[0] * 2 * config.threads * config.width * bx.element_size()
+        res["burg"][f"n{n}_{short}"] = v
         print(f"  burg, {tag}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by "
-              f"operations, {v['bound_cvt_ms']:.4f} ms with the conversions (by {v['bound_by']}); "
-              f"{v['scratch_bytes']} bytes of rows in device memory [{card}]")
+              f"operations, {v['bound_cvt_ms']:.4f} ms with the conversions (by {v['bound_by']}); {config.blocks} "
+              f"block(s) a frame, {v['registers']} registers, stack/spill {v['stack_spill']} [{card}]")
         del bx
     return res
 
@@ -3753,8 +3787,9 @@ def main() -> None:
     example_numbers = check_examples(checks, run_counted)
     phase_took("phase 15, the examples")
 
-    # --- 16. frames of 16,384 and 32,768: E over a cluster, B's rows in device memory
-    large = check_large_frames(signal, sig32, sig64, card, checks, run_counted, expect_launches, cvt_s, dev)
+    # --- 16. frames of 16,384 and 32,768: E and B over thread-block clusters
+    large = check_large_frames(signal, sig32, sig64, card, checks, run_counted, expect_launches, cvt_s, build_log,
+                               dev)
     e_row["shapes"] = {"n16384_f32": {**e16, "launches": large["paths"][16384]["launches"]["ct_fused"]},
                        **large["ct_fused"], **e_pfa}
     b_row["shapes"] = large["burg"]

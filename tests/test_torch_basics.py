@@ -18,6 +18,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import voxtpu.autocorr as jac
@@ -228,15 +229,18 @@ def test_frame_signal_too_short_raises():
 
 
 def test_waves_match_jax():
+    """voxtpu's wave functions each under jax.jit (one program each; eagerly
+    every jnp op compiles its own)."""
     x = np.random.default_rng(2).standard_normal((4, 300))
     t, j = torch.as_tensor(x), jnp.asarray(x)
-    np.testing.assert_allclose(_np(waves.rms(t)), np.asarray(jwaves.rms(j)), **TOL)
-    np.testing.assert_allclose(_np(waves.amplitude(t)), np.asarray(jwaves.amplitude(j)), **TOL)
-    np.testing.assert_allclose(_np(waves.max_amplitude(t)), np.asarray(jwaves.max_amplitude(j)), **TOL)
-    np.testing.assert_allclose(_np(waves.normalize(t)), np.asarray(jwaves.normalize(j)), **TOL)
-    np.testing.assert_allclose(
-        _np(waves.preemphasis(t, 0.05)), np.asarray(jwaves.preemphasis(j, 0.05)), rtol=1e-10, atol=1e-12
-    )
+    jw = {name: jax.jit(getattr(jwaves, name)) for name in ("rms", "amplitude", "max_amplitude", "normalize")}
+    np.testing.assert_allclose(_np(waves.rms(t)), np.asarray(jw["rms"](j)), **TOL)
+    np.testing.assert_allclose(_np(waves.amplitude(t)), np.asarray(jw["amplitude"](j)), **TOL)
+    np.testing.assert_allclose(_np(waves.max_amplitude(t)), np.asarray(jw["max_amplitude"](j)), **TOL)
+    np.testing.assert_allclose(_np(waves.normalize(t)), np.asarray(jw["normalize"](j)), **TOL)
+    np.testing.assert_allclose(_np(waves.preemphasis(t, 0.05)),
+                               np.asarray(jax.jit(jwaves.preemphasis, static_argnums=1)(j, 0.05)),
+                               rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("n", [2205, 512, 37])

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import voxtpu.autocorr as jac
@@ -63,15 +64,17 @@ def _close_to_scale(got, want, tol):
 @pytest.mark.parametrize("n", [96, 300, 512, 2205])
 def test_ct_matches_jax_ct(n, dtype, tol):
     """autocorrelate and power_and_autocorrelate with backend "ct" against
-    voxtpu's: n = 96, 300, 2205 take the chain for the lags alone (nfft !=
+    voxtpu's, under jax.jit (one program; eagerly every jnp op compiles its
+    own): n = 96, 300, 2205 take the chain for the lags alone (nfft !=
     2n), 512 for both outputs."""
     x = _frames(n, 3, 5, dtype)
     got = autocorr.autocorrelate(torch.as_tensor(x), backend="ct")
-    want = jac.autocorrelate(jnp.asarray(x), backend="ct")
+    want = jax.jit(jac.autocorrelate, static_argnames="backend")(jnp.asarray(x), backend="ct")
     assert got.dtype == (torch.float64 if dtype == np.float64 else torch.float32)
     _close_to_scale(got.numpy(), want, tol)
     gh, ga = autocorr.power_and_autocorrelate(torch.as_tensor(x), n_coeffs=n // 3, backend="ct")
-    wh, wa = jac.power_and_autocorrelate(jnp.asarray(x), n_coeffs=n // 3, backend="ct")
+    wh, wa = jax.jit(jac.power_and_autocorrelate, static_argnames=("n_coeffs", "backend"))(
+        jnp.asarray(x), n_coeffs=n // 3, backend="ct")
     _close_to_scale(gh.numpy(), wh, tol)
     _close_to_scale(ga.numpy(), wa, tol)
 

@@ -13,13 +13,16 @@ seed with numpy, go through voxtpu's functions and the port's:
   sine spread of ROADMAP.md. On the card those frames take kernel E, over a
   thread-block cluster at 16,384 in float32 and at both lengths in
   float64;
-- Burg at 32,768 in both dtypes (kernel B's device layout on the card):
-  `burg_plain` and `_model_burg`, the kernel's order of operations at the
-  launch the rule gives, against `voxtpu.lpc.burg`;
+- Burg at 32,768 in both dtypes (kernel B over a thread-block cluster on
+  the card): `burg_plain` and `_model_burg`, the kernel's order of
+  operations at the launch the rule gives, against `voxtpu.lpc.burg`
+  (under jax.jit: eagerly every order slices at a new length and compiles
+  its own program);
 - the shape gate: for every power of two n from 64 to 65,536, with nfft =
   2n and 4n, in both dtypes, E's `ct_fused_supported` equals voxtpu's.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,15 +120,17 @@ def test_large_frames_are_healthy(large_slice):
 ])
 def test_burg_32768_matches_jax(dt, tol):
     """Order 13 over two noisy frames of 32,768: the launch the rule gives is
-    the device layout (512 threads of 64 pairs); `burg_plain` and the
-    kernel's model against voxtpu's Burg, the statuses equal."""
+    the cluster layout (2 blocks of 288 threads of 63 pairs in float32, 4 of
+    160 in float64); `burg_plain` and the kernel's model against voxtpu's
+    Burg, the statuses equal."""
     n = 32768
     config = B.launch_config(n, torch.float64 if dt == np.float64 else torch.float32)
-    assert config == ("device", 512, 64)
+    assert config == (("cluster", 160, 63, 4) if dt == np.float64 else ("cluster", 288, 63, 2))
     x = _noisy_frames(n, dt)
-    want, wstatus = (np.asarray(v) for v in jax_burg(jnp.asarray(x), 13, backend="jnp"))
+    jax_burg_jit = jax.jit(jax_burg, static_argnums=1, static_argnames="backend")
+    want, wstatus = (np.asarray(v) for v in jax_burg_jit(jnp.asarray(x), 13, backend="jnp"))
     got, gstatus = (t.numpy() for t in B.burg_plain(torch.as_tensor(x), 13))
-    cm, sm = _model_burg(x, 13, config.threads, config.width)
+    cm, sm = _model_burg(x, 13, config.threads, config.width, config.blocks)
     for coef, status in ((got, gstatus), (cm, sm)):
         np.testing.assert_allclose(coef, want, rtol=tol[0], atol=tol[1])
         np.testing.assert_array_equal(status, wstatus)

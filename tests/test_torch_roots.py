@@ -37,6 +37,14 @@ TOL = {np.float64: 1e-10, np.float32: 1e-3}
 NAMES = [name for name, _, _ in roots_edge_cases(np.float64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @partial(jax.jit, static_argnames="backend")
 def _jax_find_roots(re_, im_, backend):
     return jax_find_roots(JC(re_, im_), backend=backend)

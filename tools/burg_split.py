@@ -6,7 +6,7 @@ the kernels as chip_smoke.py does, and the probes of tools/burg_rates.cu
 with chip_smoke.py's `rate_probes_build` into build/burg_rates/):
 
     python3 tools/burg_split.py [--root DIR] [--paths cli,bench,flagship] [--dtypes f32,f64]
-                                [--lengths N,...] [--no-rates] [--layouts]
+                                [--lengths N,...] [--no-rates] [--layouts] [--clusters C,...]
 
 For each path (chip_smoke.py's CLI, bench and flagship configurations over
 its 126 tiles of the bundled recording) and dtype it builds kernel B's
@@ -19,6 +19,10 @@ fit at those shapes (the rows in shared or in device memory where the
 rule picks registers), beside the one `launch_config` picks. --lengths
 also times B, order 13, on 2,048 noisy frames of each length
 (`chip_smoke.burg_large_frames`), for frames longer than the paths'.
+--clusters also times the cluster layout at each of those block counts
+(the fewest whole warps whose threads hold a block's share, where that
+fits a block), beside the one the rule picks, and counts the frames whose
+coefficients or status differ in bits from the rule's launch.
 
 The rates (skipped with --no-rates; `chip_smoke.probe_rates`): float ->
 double conversions, float64 fused multiply-adds, 32-bit shared-memory
@@ -56,6 +60,7 @@ def main() -> None:
     ap.add_argument("--runs", type=int, default=5, help="timed launches after a warm-up")
     ap.add_argument("--no-rates", action="store_true", help="skip the rate probes")
     ap.add_argument("--layouts", action="store_true", help="also time the other layouts where they fit")
+    ap.add_argument("--clusters", default="", help="cluster sizes to time beside the rule's (comma-separated)")
     args = ap.parse_args()
     import torch
 
@@ -104,6 +109,11 @@ def main() -> None:
         if with_layouts:
             others = (burg.layout(N, dt, rows) for rows in burg.ROWS if rows != chosen.rows)
             configs += [c for c in others if c is not None]
+        for blocks in (int(c) for c in args.clusters.split(",") if c):
+            config = cluster_config(burg, N, dt, blocks)
+            if config is not None and config not in configs:
+                configs.append(config)
+        want = burg._launch(x, p, chosen) if args.clusters else None
         for config in configs:
             ms = cs.event_ms(lambda: burg.burg(x, p) if config is chosen else burg._launch(x, p, config),
                              runs=args.runs)
@@ -112,10 +122,24 @@ def main() -> None:
             if with_layouts:
                 row.update(config._asdict(), chosen_by_rule=config is chosen)
                 text = f", {config}{' (the rule)' if config is chosen else ''}"
+            if want is not None:
+                got = burg._launch(x, p, config)
+                row["frames_apart"] = int(((cs.bits(got[0]) != cs.bits(want[0])).any(dim=-1)
+                                           | (got[1] != want[1])).sum())
+                text += f", {row['frames_apart']} frames apart in bits from the rule's"
             print(f"burg, {path}, {dname}: {ms:.3f} ms ({B} frames of {N}, order {p}{text}) [{card}]", flush=True)
             result["rows"].append(row)
         del x
     print(json.dumps(result))
+
+
+def cluster_config(burg, n: int, dt, blocks: int):
+    """The cluster layout over `blocks` blocks at the fewest whole warps whose
+    threads hold a block's share of the pairs, or None where that does not
+    fit a block."""
+    threads = burg._threads(-(-(n - 1) // blocks) + 1, burg._SHARED_WIDTH)
+    fits = burg._fits(n, dt.itemsize, "cluster", threads, blocks)
+    return burg.BurgConfig("cluster", threads, burg._SHARED_WIDTH, blocks) if fits else None
 
 
 if __name__ == "__main__":

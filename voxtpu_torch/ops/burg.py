@@ -23,13 +23,19 @@ width c; the kernel's constants are mirrored here. Frames too long for the
 registers of a block's 512 threads (over 35 x 512 pairs in float32, 23 x 512
 in float64) run the same steps with the rows in shared memory (the "shared"
 layout), up to the card's shared memory a block (28,967 float32 and 14,497
-float64 samples); longer ones with the rows in a scratch buffer in device
-memory that the wrapper allocates (the "device" layout, 512 threads at the
-width that holds the frame), so the card takes every frame length.
+float64 samples); longer ones over a thread-block cluster of 2, 4 or 8
+blocks, each holding a contiguous share of the pairs in its shared memory
+(the "cluster" layout; the warps exchange their sums through each block's
+shared memory, one record set an order), up to 225,793 float32
+and 112,897 float64 samples; longer ones still with the rows in a scratch
+buffer in device memory that the wrapper allocates (the "device" layout,
+512 threads at the width that holds the frame), so the card takes every
+frame length.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -45,18 +51,21 @@ _WIDTH = {torch.float32: 35, torch.float64: 23}  # kWidthF32, kWidthF64
 _SHARED_WIDTH = 63  # kSharedWidth
 _MAX_THREADS = 512  # kMaxThreads
 _SMEM_LIMIT = 232448  # kSmemLimit
+_CLUSTERS = (2, 4, 8)  # the cluster layout's blocks a frame, up to kMaxCluster
 # Where the rows live, as the launcher's `rows` argument (kRowsRegisters,
-# kRowsShared, kRowsDevice).
-ROWS = {"registers": 0, "shared": 1, "device": 2}
+# kRowsShared, kRowsDevice, kRowsCluster).
+ROWS = {"registers": 0, "shared": 1, "device": 2, "cluster": 3}
 
 
 class BurgConfig(NamedTuple):
-    """A launch of kernel B: where the rows live ("registers", "shared" or
-    "device"), threads a block, pairs a thread."""
+    """A launch of kernel B: where the rows live ("registers", "shared",
+    "cluster" or "device"), threads a block, pairs a thread, and blocks a
+    frame (a thread-block cluster of them in the cluster layout, else 1)."""
 
     rows: str
     threads: int
     width: int
+    blocks: int = 1
 
 
 def _threads(n: int, width: int) -> int:
@@ -67,36 +76,75 @@ def _threads(n: int, width: int) -> int:
 
 def smem_bytes(n: int, dtype: torch.dtype, config: BurgConfig) -> int:
     """csrc/burg.cu smem_bytes: the rows (n values staged, b1 and b2 of
-    n - 1 values each, or none when they lie in device memory), rounded to
-    16 bytes, then two parities of the warps' (num, den) in double and
-    first pairs in the dtype."""
-    rows = {"registers": n, "shared": 2 * (n - 1), "device": 0}[config.rows]
-    warps = config.threads // 32
-    return -(-rows * dtype.itemsize // 16) * 16 + 4 * warps * 8 + 4 * warps * dtype.itemsize
+    n - 1 values each, the block's share of b1 and b2 of threads x width
+    values each in the cluster layout, or none when they lie in device
+    memory), rounded to 16 bytes, then two parities of the warps' (num, den)
+    in double and first pairs in the dtype; in the cluster layout two
+    mbarriers and two sets of the cluster's records, (num, den) and the
+    first pair of each of its warps."""
+    return _smem(n, dtype.itemsize, config.rows, config.threads, config.blocks)
+
+
+def _smem(n: int, itemsize: int, rows: str, threads: int, blocks: int = 1) -> int:
+    values = (n if rows == "registers" else 2 * (n - 1) if rows == "shared"
+              else 2 * threads * _SHARED_WIDTH if rows == "cluster" else 0)
+    warps = threads // 32
+    if rows == "cluster":
+        return -(-values * itemsize // 16) * 16 + 16 + 4 * blocks * warps * (8 + itemsize)
+    return -(-values * itemsize // 16) * 16 + 4 * warps * 8 + 4 * warps * itemsize
+
+
+def _fits(n: int, itemsize: int, rows: str, threads: int, blocks: int = 1) -> bool:
+    return threads <= _MAX_THREADS and _smem(n, itemsize, rows, threads, blocks) <= _SMEM_LIMIT
 
 
 def layout(n: int, dtype: torch.dtype, rows: str) -> BurgConfig | None:
     """The launch of kernel B for frames of n `dtype` values with the rows in
     registers or shared memory, at the fewest whole warps that hold them
-    (None where that takes more than a block's threads or shared memory),
-    or in device memory, at 512 threads and the width that holds them."""
+    (None where that takes more than a block's threads or shared memory);
+    over a cluster of the fewest blocks (2, 4 or 8) whose shares of the
+    pairs, at the fewest whole warps that hold them, fit a block (None where
+    8 do not); or in device memory, at 512 threads and the width that holds
+    them."""
     if dtype not in _WIDTH:
         raise TypeError(f"burg: kernels take float32 or float64, got {dtype}")
     if rows == "device":
         return BurgConfig(rows, _MAX_THREADS, max(1, -(-(n - 1) // _MAX_THREADS)))
-    width = _SHARED_WIDTH if rows == "shared" else _WIDTH[dtype]
-    config = BurgConfig(rows, _threads(n, width), width)
-    if config.threads > _MAX_THREADS or smem_bytes(n, dtype, config) > _SMEM_LIMIT:
+    if rows == "cluster":
+        for blocks in _CLUSTERS:
+            threads = _threads(-(-(n - 1) // blocks) + 1, _SHARED_WIDTH)
+            if _fits(n, dtype.itemsize, rows, threads, blocks):
+                return BurgConfig(rows, threads, _SHARED_WIDTH, blocks)
         return None
-    return config
+    width = _SHARED_WIDTH if rows == "shared" else _WIDTH[dtype]
+    threads = _threads(n, width)
+    return BurgConfig(rows, threads, width) if _fits(n, dtype.itemsize, rows, threads) else None
+
+
+@functools.cache
+def _tops(dtype: torch.dtype) -> tuple[int, int, int]:
+    """The longest frames the registers, shared memory and a cluster hold
+    (each layout holds every shorter frame too)."""
+
+    def top(rows: str) -> int:
+        lo, hi = 2, 1 << 24
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if layout(mid, dtype, rows) else (lo, mid - 1)
+        return lo
+
+    return top("registers"), top("shared"), top("cluster")
 
 
 def launch_config(n: int, dtype: torch.dtype) -> BurgConfig:
     """Kernel B's launch for (B, n) frames of `dtype`, a pure function of
     (n, dtype): the rows in registers where a block holds them, else in
-    shared memory, else in device memory."""
-    return layout(n, dtype, "registers") or layout(n, dtype, "shared") or layout(n, dtype, "device")
-
+    shared memory, else over a thread-block cluster, else in device memory."""
+    if dtype not in _WIDTH:
+        raise TypeError(f"burg: kernels take float32 or float64, got {dtype}")
+    registers, shared, cluster = _tops(dtype)
+    rows = "registers" if n <= registers else "shared" if n <= shared else "cluster" if n <= cluster else "device"
+    return layout(n, dtype, rows)
 
 
 def burg_plain(x: torch.Tensor, n_coeffs: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -163,7 +211,8 @@ def _launch(x: torch.Tensor, p: int, config: BurgConfig) -> tuple[torch.Tensor, 
     (uncounted: `burg` counts its launch; tools/burg_split.py runs the other
     layouts through this). The device layout's rows go in a scratch buffer,
     (B, width, 2, threads): pair t c + j of a frame's (b1, b2) at [j, :, t],
-    uninitialised (the kernel fills them from the frames)."""
+    uninitialised (the kernel fills them from the frames). The cluster
+    layout runs B clusters of `config.blocks` blocks."""
     B, N = x.shape
     coef = torch.empty((B, p), dtype=x.dtype, device=x.device)
     status = torch.empty((B,), dtype=torch.int32, device=x.device)
@@ -171,7 +220,7 @@ def _launch(x: torch.Tensor, p: int, config: BurgConfig) -> tuple[torch.Tensor, 
     if config.rows == "device":
         rows = torch.empty((B, config.width, 2, config.threads), dtype=x.dtype, device=x.device)
     kernels.launch("vt_burg", x.dtype, x, coef, status, rows, B, N, p, config.threads, config.width,
-                   ROWS[config.rows])
+                   ROWS[config.rows], config.blocks)
     return coef, status
 
 

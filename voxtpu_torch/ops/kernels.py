@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 # pointer: p = device pointer, i = int, d = double.
 _SIGNATURES = {
     "vt_refine": "ppppppiiiiiiid",
-    "vt_burg": "ppppiiiiii",
+    "vt_burg": "ppppiiiiiii",
     "vt_roots": "ppppppii",
     "vt_formant_scan": "ppppppppiiii",
     "vt_ct_fused": "pppppiii",
