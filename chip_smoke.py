@@ -94,7 +94,8 @@ checkout. Phases, each an uncaught exception when it fails:
    refused (over a thread-block cluster above 8,192 float32 and 4,096
    float64 samples; the 153 lengths that are not powers of two by the
    prime-factor kernel, in float64 above 14,336 samples with its buffer in
-   device memory), each launched once;
+   device memory), each launched once, and in float32 at those 153 lengths
+   also against the float64 FFT per frame;
 9. the command line, float32, from IEEE-float WAVs of the 126 tiles and of
    the 16 corpus recordings: `python3 -m voxtpu_torch analyze` as a
    subprocess against in-process `analyze`, and `cli.main(["corpus", ...,
@@ -188,11 +189,12 @@ checkout. Phases, each an uncaught exception when it fails:
    (the bench recording framed 16,384 / 4,096, windowed) against their
    plain versions and the float64 FFT, timed beside cuFFT; then E at
    E_PFA_NS (2,176, 12,288 and 20,096 samples, not powers of two) on the
-   recording framed n / (n / 4), windowed, against its plain version and
-   the float64 FFT, timed beside its plain version, cuFFT and X3, with its
-   bound (the function's work) and, beside it, the least time for its
-   direct DFTs' operations, and the prime-factor kernel's registers and
-   spill; then E in float64 with its buffer in device memory on 2 x SMs +
+   recording framed n / (n / 4), windowed, in float32 and float64, against
+   its plain version (float32 also against the float64 FFT), timed beside
+   its plain version, cuFFT and (float32) X3, with its bound (the
+   function's work) and, beside it, the least time for its tensor-core
+   products, and the prime-factor kernel's registers and 0 bytes of stack
+   and spill; then E in float64 with its buffer in device memory on 2 x SMs +
    1 noise frames (each block walks two or three) at E_DEVICE_MANY_NS;
 15. the examples (`check_examples`): examples/torch/pitch_detection.py,
    formant_extraction.py and serving_client.py with `--device cuda`, each
@@ -212,6 +214,10 @@ checkout. Phases, each an uncaught exception when it fails:
    cluster size, registers and spill).
 
 Each phase prints the seconds it took.
+
+`python3 chip_smoke.py --kernel-e [DIR]` runs kernel E alone: phase 8's
+walk of its gate and phase 14's prime-factor rows, with the voxtpu_torch of
+the checkout at DIR (default this one; see `kernel_e_alone`).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last is the device line
@@ -295,6 +301,9 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 F64_OPS_S = 34e12
 BF16_TC_OPS_S = 989e12
+# Dense TF32 and FP64 FLOP/s on the tensor cores (the same data sheet).
+TF32_TC_OPS_S = 495e12
+F64_TC_OPS_S = 67e12
 # The SM clock those peaks assume (67e12 = 132 SMs x 256 float32 operations
 # a clock x 1.98 GHz). Kernel B's bound with its float -> double conversions
 # takes the conversions a clock an SM that tools/burg_rates.cu's probe
@@ -326,15 +335,16 @@ BURG_LARGE = (
 # seed columns' fill for more than 32 estimates the third); E: one a
 # power-of-two frame length (128-16384 in either dtype: one block a frame up
 # to 8192 in float32 and 4096 in float64, a cluster above), and for the
-# other lengths one a power-of-two factor N1 = 128 .. 4096 (the buffer in
-# shared memory), in float64 also with the buffer in device memory; A: one in
+# other lengths two a power-of-two factor N1 = 128 .. 4096 (the buffer in
+# shared memory, the input staged there or read from device memory), in
+# float64 also one with the buffer in device memory; A: one in
 # each dtype; B: three in each dtype (its register width, the rows in shared
 # memory, the rows in device memory) and the cluster layout's kernel in each; C: two in each dtype (N = 14 and the
 # capacity, N <= 128); P: two in each dtype (N = 14 in registers, any N <=
 # 128); F: the cost
 # pre-pass in each dtype, and the chain in each dtype with and without its
 # clock probe; X3: one kernel for every n its gate admits.
-STACK_CHECKED = {"formant_scan": 6, "ct_fused": 34, "refine_kernel": 2, "burg_kernel": 6, "burg_cluster_kernel": 2,
+STACK_CHECKED = {"formant_scan": 6, "ct_fused": 46, "refine_kernel": 2, "burg_kernel": 6, "burg_cluster_kernel": 2,
                  "roots_kernel": 4, "polish_kernel": 4, "viterbi_costs": 2, "viterbi_chain": 4, "ct_x3_kernel": 1}
 # The LPC orders above order 13 that the card takes, as N = order + 1
 # coefficient pairs: kernels B, C and P at each (phase 3d), up to voxtpu's
@@ -1476,8 +1486,10 @@ def check_path_kernels(label: str, frames64, cfg, outs: dict, checks: Checks,
 def check_ct_fused_gate(checks: Checks, dev) -> None:
     """Kernel E against its plain version at every frame length its shape
     gate admits, in both dtypes: seeded noise, E_GATE_FRAMES frames a
-    length. The gate must admit the 161 multiples of 128 up to 20,608 and
-    refuse 20,736 in both (voxtpu's), and each length must launch E."""
+    length; in float32 at the lengths that are not powers of two also
+    against the float64 FFT per frame (CT_FUSED_F32_TOL). The gate must
+    admit the 161 multiples of 128 up to 20,608 and refuse 20,736 in both
+    (voxtpu's), and each length must launch E."""
     import torch
 
     from voxtpu_torch.ops import ct_fused
@@ -1493,10 +1505,17 @@ def check_ct_fused_gate(checks: Checks, dev) -> None:
         for n in admitted:
             frames = E_GATE_FRAMES["pow2" if n & (n - 1) == 0 else "other"]
             x = torch.randn((frames, n), generator=gen, dtype=dt, device=dev)
-            check_ct_fused(x, 2 * n, checks, f"gate, n={n}, {ct_fused.ct_fused_layout(n, dt)}, {dname}")
+            tag = f"gate, n={n}, {ct_fused.ct_fused_layout(n, dt)}, {dname}"
+            check_ct_fused(x, 2 * n, checks, tag)
+            if dt == torch.float32 and n & (n - 1):
+                he, ae = ct_fused.ct_fused_power_ac(x, 2 * n)
+                h64, a64 = f64_transform(x, 2 * n)
+                close_per_frame(f"ct_fused half vs float64 fft [{tag}]", he, h64, CT_FUSED_F32_TOL, checks)
+                close_per_frame(f"ct_fused ac vs float64 fft [{tag}]", ae, a64, CT_FUSED_F32_TOL, checks)
         launched = ct_fused.ct_fused_power_ac.launches - before
-        checks.true(f"ct_fused launched once at each of the {len(admitted)} lengths in {dt}",
-                    launched == len(admitted), f"({launched})")
+        want = len(admitted) + (sum(1 for n in admitted if n & (n - 1)) if dt == torch.float32 else 0)
+        checks.true(f"ct_fused launched at each of the {len(admitted)} lengths in {dt}",
+                    launched == want, f"({launched} launches, {want} expected)")
 
 
 def bound(nbytes: float, ops_s: float) -> tuple[float, str]:
@@ -1672,22 +1691,29 @@ def ct_fused_bound(x, nfft: int) -> tuple[float, str]:
 
 
 def ct_fused_pfa_algo_ms(x, nfft: int) -> float:
-    """The least ms for the operations that kernel E's prime-factor kernel
-    does at (F, n) frames x of a length that is not a power of two (n = N1
-    m), at the card's peak rate: the forward m-point DFTs over the n/2
-    nonzero points and the inverse ones for the n/2 outputs, m complex
-    multiply-adds (8 operations) each, about 8 n m; the N1-point FFTs of
-    the m rows each way, 5 N1 log2 N1 each; the split, about 30 operations
-    a pair. It says how far the kernel's own algorithm is from the card's
-    rate and is reported beside E's bound (`ct_fused_bound`, the function's
-    work), never as it: the direct DFTs count far more operations than the
-    function needs."""
+    """The least ms for the tensor-core products of kernel E's prime-factor
+    kernel at (F, n) frames x of a length that is not a power of two (n =
+    N1 m, mh = (m + 1)/2), as the kernel issues them (csrc/ct_fused.cu): in
+    each of steps 1 and 5, four real products of its mma tiles (float32
+    m16n8k8 in three TF32 passes, float64 m8n8k4): N1/16 M tiles x
+    ceil(mh/8) N tiles x ceil(mh/8) K tiles, or where mh fits one K tile
+    (mh <= 8 in float32, 4 in float64) N1 / (kP/mhp x 16) packed tiles (mhp
+    the power of two >= mh), at the dense TF32 (FP64) tensor-core rate. It
+    says how far the kernel's DFTs are from the card's rate and is
+    reported beside E's bound (`ct_fused_bound`, the function's work),
+    never as it: the row FFTs, the split and the turns run on the CUDA
+    cores beside them."""
     F, n = x.shape
-    isz = x.element_size()
+    f32 = x.element_size() == 4
+    kM, kN, kK, kP = (16, 8, 8, 8) if f32 else (8, 8, 4, 4)
     n1 = n & -n
-    m = n // n1
-    ops = F * (8 * n * m + 2 * m * 5 * n1 * math.log2(n1) + 30 * (n // 2 + 1))
-    return ops / (F32_OPS_S if isz == 4 else F64_OPS_S) * 1e3
+    mh = (n // n1 + 1) // 2
+    if mh <= kP:
+        tiles = n1 // (kP // (1 << (mh - 1).bit_length()) * kM)
+    else:
+        tiles = n1 // kM * -(-mh // kN) * -(-mh // kK)
+    ops = F * 2 * tiles * 4 * 2 * kM * kN * kK * (3 if f32 else 1)
+    return ops / (TF32_TC_OPS_S if f32 else F64_TC_OPS_S) * 1e3
 
 
 def cufft_power_ac(x, nfft: int):
@@ -2836,18 +2862,19 @@ def check_autocorr_backends(x, nfft: int, signal, build_log: str, card: str, che
 
 def check_ct_fused_pfa(signal, build_log: str, card: str, checks: Checks) -> dict:
     """Phase 14's rows of kernel E at lengths that are not powers of two
-    (E_PFA_NS), float32: the recording `signal` framed n / (n / 4) and
-    windowed; E against its plain version and against the float64 FFT per
-    frame (CT_FUSED_F32_TOL); the times (CUDA events, mean of 5) of E, its
-    plain version, cuFFT's rfft-power-irfft and X3 on the same frames; E's
-    bound, the function's work (`ct_fused_bound`), and beside it the least
-    time for its kernel's own operations (`ct_fused_pfa_algo_ms`); the
-    prime-factor kernel's registers and stack/spill. Then the float64
+    (E_PFA_NS): the recording `signal` framed n / (n / 4) and windowed, in
+    float32 and in float64; E against its plain version (CT_FUSED_F32_TOL
+    per frame, the float64 tolerances) and, in float32, against the float64
+    FFT per frame; the times (CUDA events, mean of 5) of E, its plain
+    version, cuFFT's rfft-power-irfft and, in float32, X3 on the same
+    frames; E's bound, the function's work (`ct_fused_bound`), and beside
+    it the least time for its tensor-core products (`ct_fused_pfa_algo_ms`);
+    the prime-factor kernel's registers and stack/spill. Then the float64
     layout with the buffer in device memory on 2 x SMs + 1 seeded noise
     frames at E_DEVICE_MANY_NS (the wrapper runs one block an SM, so each
     block walks two or three frames through its scratch slice), against
     the plain version at the float64 tolerances. Returns {f"n{n}_f32":
-    numbers, "device_many_f64": numbers}."""
+    numbers, f"n{n}_f64": numbers, "device_many_f64": numbers}."""
     import torch
 
     from voxtpu_torch.frame import frame_signal
@@ -2857,29 +2884,38 @@ def check_ct_fused_pfa(signal, build_log: str, card: str, checks: Checks) -> dic
     spills = stack_frames(build_log, "ct_fused_pfa_kernel")
     print(f"  ct_fused_pfa_kernel: registers {sorted(regs.values())}, stack/spill {sorted(set(spills.values()))} "
           f"over {len(spills)} instantiations")
+    checks.true("ct_fused_pfa_kernel: 0 bytes of stack frame and spill",
+                bool(spills) and all(v == (0, 0, 0) for v in spills.values()), sorted(set(spills.values())))
     out = {}
     for n in E_PFA_NS:
-        x = hann_windowed(frame_signal(signal, n, n // 4))
-        err = check_ct_fused(x, 2 * n, checks, f"{x.shape[0]} frames of {n}, recording, f32")
-        he, ae = ct_fused.ct_fused_power_ac(x, 2 * n)
-        h64, a64 = f64_transform(x, 2 * n)
-        err64 = max(close_per_frame(f"E half vs float64 fft [n = {n}]", he, h64, CT_FUSED_F32_TOL, checks),
-                    close_per_frame(f"E ac vs float64 fft [n = {n}]", ae, a64, CT_FUSED_F32_TOL, checks))
-        del he, ae, h64, a64
-        v = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x, 2 * n)),
-             "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x, 2 * n)),
-             "library_ms": event_ms(lambda: cufft_power_ac(x, 2 * n)),
-             "x3_ms": event_ms(lambda: ct_x3.ct_x3_power_ac(x, 2 * n))}
-        bound_ms, bound_by = ct_fused_bound(x, 2 * n)
+        x32 = hann_windowed(frame_signal(signal, n, n // 4))
         n1 = n & -n
-        v.update(bound_ms=bound_ms, bound_by=bound_by, algo_bound_ms=ct_fused_pfa_algo_ms(x, 2 * n), max_abs_err=err,
-                 err_vs_f64_fft=err64, frames=x.shape[0], n=n, n1=n1, m=n // n1, dtype="float32",
-                 layout=ct_fused.ct_fused_layout(n, x.dtype))
-        out[f"n{n}_f32"] = v
-        print(f"  ct_fused, {v['frames']} frames of {n} = {n1} x {v['m']} (prime-factor kernel): kernel {v['ms']:.3f} "
-              f"ms, plain {v['plain_ms']:.3f} ms, cuFFT {v['library_ms']:.3f} ms, X3 {v['x3_ms']:.3f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} (its direct DFTs' operations alone: {v['algo_bound_ms']:.4f} ms); "
-              f"within {err64:.3e} of the float64 fft per frame [{card}]")
+        for x in (x32, x32.double()):
+            dname = "f32" if x.dtype == torch.float32 else "f64"
+            err = check_ct_fused(x, 2 * n, checks, f"{x.shape[0]} frames of {n}, recording, {dname}")
+            v = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x, 2 * n)),
+                 "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x, 2 * n)),
+                 "library_ms": event_ms(lambda: cufft_power_ac(x, 2 * n))}
+            text = f"kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, cuFFT {v['library_ms']:.3f} ms"
+            if dname == "f32":
+                he, ae = ct_fused.ct_fused_power_ac(x, 2 * n)
+                h64, a64 = f64_transform(x, 2 * n)
+                v["err_vs_f64_fft"] = max(
+                    close_per_frame(f"E half vs float64 fft [n = {n}]", he, h64, CT_FUSED_F32_TOL, checks),
+                    close_per_frame(f"E ac vs float64 fft [n = {n}]", ae, a64, CT_FUSED_F32_TOL, checks))
+                del he, ae, h64, a64
+                v["x3_ms"] = event_ms(lambda: ct_x3.ct_x3_power_ac(x, 2 * n))
+                text += f", X3 {v['x3_ms']:.3f} ms"
+            bound_ms, bound_by = ct_fused_bound(x, 2 * n)
+            v.update(bound_ms=bound_ms, bound_by=bound_by, algo_bound_ms=ct_fused_pfa_algo_ms(x, 2 * n),
+                     max_abs_err=err, frames=x.shape[0], n=n, n1=n1, m=n // n1, dtype=dname,
+                     layout=ct_fused.ct_fused_layout(n, x.dtype), staged=ct_fused.ct_fused_pfa_staged(n, x.dtype))
+            out[f"n{n}_{dname}"] = v
+            tail = f"; within {v['err_vs_f64_fft']:.3e} of the float64 fft per frame" if dname == "f32" else ""
+            print(f"  ct_fused, {v['frames']} frames of {n} = {n1} x {v['m']}, {dname}, {v['layout']}"
+                  f"{', staged' if v['staged'] else ''} (prime-factor kernel): {text}, bound {bound_ms:.4f} ms by "
+                  f"{bound_by} (its tensor-core products alone: {v['algo_bound_ms']:.4f} ms){tail} [{card}]")
+        del x32, x
     dev = signal.device
     many = 2 * torch.cuda.get_device_properties(dev).multi_processor_count + 1
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2954,6 +2990,49 @@ def side_checks() -> None:
     check_many_estimates(checks, dev)
     print(f"[phase 3e, {MANY_ESTIMATES} estimates: {time.perf_counter() - t1:.1f} s]", flush=True)
     checks.raise_failures()
+
+
+def kernel_e_alone(root: Path) -> None:
+    """`python3 chip_smoke.py --kernel-e [DIR]`: kernel E alone, imported
+    from the checkout at DIR (default this one; another one, for instance
+    the parent commit unpacked with `git archive` into a git-ignored
+    directory, lets two versions be timed on one card in one call, run in
+    turns). Builds that checkout's kernels, then runs phase 8's walk of E's
+    gate (`check_ct_fused_gate`) and phase 14's prime-factor rows
+    (`check_ct_fused_pfa`) with this script's checks, bounds and timing.
+    Prints the card, the rows and, last, one JSON object of phase 14's
+    numbers; raises when a check failed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_smoke.py runs on the card only")
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from voxtpu_torch.io_wav import read_wav
+    from voxtpu_torch.ops import ct_fused, kernels
+
+    if Path(ct_fused.__file__).resolve().parents[2] != root:
+        raise SystemExit(f"voxtpu_torch imported from {ct_fused.__file__}, not from {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"{card}; kernel E from {root}", flush=True)
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"[kernels built in {time.perf_counter() - t0:.1f} s]", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    checks = Checks()
+    t0 = time.perf_counter()
+    check_ct_fused_gate(checks, dev)
+    print(f"[kernel E's gate: {time.perf_counter() - t0:.1f} s]", flush=True)
+    one = np.asarray(read_wav(str(FIXTURE)).samples, dtype=np.float64)
+    sig32 = torch.as_tensor(np.tile(one, TILES), device=dev).float()
+    t0 = time.perf_counter()
+    out = check_ct_fused_pfa(sig32, kernels.library_path().with_suffix(".log").read_text(), card, checks)
+    print(f"[kernel E's prime-factor rows: {time.perf_counter() - t0:.1f} s]", flush=True)
+    checks.raise_failures()
+    print(json.dumps({"root": str(root), "card": card, **out}))
 
 
 def check_examples(checks: Checks, run_counted, device: str = "cuda") -> dict:
@@ -3702,9 +3781,10 @@ def main() -> None:
     x64 = xe.double()
     e64 = {"ms": event_ms(lambda: ct_fused.ct_fused_power_ac(x64, nfft)),
            "plain_ms": event_ms(lambda: ct_fused.ct_fused_power_ac_plain(x64, nfft)),
+           "library_ms": event_ms(lambda: cufft_power_ac(x64, nfft)),
            "bound_ms": ct_fused_bound(x64, nfft)[0], "frames": FB}
-    print(f"  ct_fused, bench path, float64: kernel {e64['ms']:.3f} ms, plain {e64['plain_ms']:.3f} ms, bound "
-          f"{e64['bound_ms']:.4f} ms [{card}]")
+    print(f"  ct_fused, bench path, float64: kernel {e64['ms']:.3f} ms, plain {e64['plain_ms']:.3f} ms, cuFFT "
+          f"rfft-power-irfft {e64['library_ms']:.3f} ms, bound {e64['bound_ms']:.4f} ms [{card}]")
     del x64
     e_row = next(r for r in rows if r["name"] == "ct_fused")
     e_row["by_path"] = e_paths
@@ -3823,5 +3903,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--side"]:
         side_checks()
+    elif sys.argv[1:2] == ["--kernel-e"] and len(sys.argv) <= 3:
+        kernel_e_alone(Path(sys.argv[2]) if len(sys.argv) == 3 else ROOT)
     else:
         main()

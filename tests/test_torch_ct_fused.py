@@ -147,7 +147,9 @@ def test_gate_admits_the_same_frame_lengths(dtype, largest):
 def test_constants_mirror_the_cuda_source():
     """The wrapper's points a thread, block floor, largest frame (the
     largest power of two: kMaxLog2) and per-dtype largest frame of one
-    block (above which a frame takes a cluster) are csrc/ct_fused.cu's."""
+    block (above which a frame takes a cluster) are csrc/ct_fused.cu's; so
+    are the prime-factor kernel's threads a block (and where 512 take
+    over) and its N tiles a warp holds in each m-point DFT."""
     src = CU.read_text()
 
     def const(name):
@@ -159,6 +161,10 @@ def test_constants_mirror_the_cuda_source():
     assert 1 << const("kMaxLog2") == max(n for n in range(128, const("kMaxN") + 1, 128) if n & (n - 1) == 0)
     assert 1 << const("kBlockLog2F32") == ct_fused._BLOCK_N[torch.float32]
     assert 1 << const("kBlockLog2F64") == ct_fused._BLOCK_N[torch.float64]
+    assert const("kPfaThreads") == ct_fused._PFA_THREADS
+    assert const("kPfaWideThreads") == ct_fused._PFA_WIDE_THREADS
+    assert const("kPfaWideLog2") == ct_fused._PFA_WIDE_LOG2
+    assert (const("kPfaChunk"), const("kPfaChunk5")) == (ct_fused._PFA_CHUNK, ct_fused._PFA_CHUNK5)
 
 
 @pytest.mark.parametrize("n", [96, 300, 2205])

@@ -12,10 +12,13 @@ only; here, on the same inputs made from a seed with numpy:
   interpret mode at four of the new lengths: float64 within 1e-12 of each
   frame's largest value, float32 within CT_FUSED_F32_TOL;
 - `_model_ct_fused_pfa`, a NumPy model of the prime-factor kernel's steps
-  (the index maps, the m-point DFTs, the N1-point Stockham passes of
-  tests/test_torch_ct_fused.py's model, the split, the inverse), equals
-  np.fft within 1e-12 in float64 at all 153 new lengths, and the plain
-  version within CT_FUSED_F32_TOL in float32 at the largest prime factor;
+  (the m-point DFTs as products with the DFT matrix, float32 in three TF32
+  passes, the N1-point Stockham passes of tests/test_torch_ct_fused.py's
+  model, the split, the fold, the inverse), equals np.fft within 1e-12 in
+  float64 at all 153 new lengths, and the plain version within
+  CT_FUSED_F32_TOL in float32 at the largest prime factor and at the
+  largest and smallest odd factors; every index the kernel steps by
+  addition equals its definition by the CRT maps at all 153 lengths;
 - routing: the entry points' shapes (nfft = next_pow2(2n)) never reach E at
   these lengths, and an explicit nfft = 2n takes E where voxtpu's gate
   does;
@@ -122,30 +125,62 @@ def _rows_fft(rows, tw, inverse):
     return rows
 
 
+def _tf32(a):
+    """cvt.rna.tf32.f32: float32 values rounded to TF32's 10 mantissa bits,
+    to nearest, ties away from zero."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma(a, b):
+    """a @ b as the kernel's tensor cores form it: float64 as it is (the FP64
+    tensor cores); float32 in three TF32 passes, a_lo b_hi + a_hi b_lo +
+    a_hi b_hi (x_hi = tf32(x), x_lo = tf32(x - x_hi)), with float32 sums."""
+    if a.dtype == np.float64:
+        return a @ b
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def _model_ct_fused_pfa(x):
     """ct_fused_pfa_kernel's steps over (B, n) real frames, n = N1 m (N1 a
     power of two, m odd), in x's dtype: (half (B, n/2+1), ac (B, n)).
 
-    Time index j lies at (j2, j1) = (j mod m, j mod N1) of a buffer of m rows
-    of N1 points, frequency index k = (m k1 + N1 k2) mod n at (k2, k1). 1.
-    The m-point DFTs of the n/2 nonzero points over j2 with the roots w_m^e =
-    w^{2 N1 e} from the twiddle table; 2. the rows' N1-point FFTs; 3. the
-    split of each pair (k, n - k), k <= n/2, (k1, k2) = (k m^-1 mod N1, k
-    N1^-1 mod m); 4. the rows' inverse FFTs; 5. the inverse m-point DFTs to
-    the outputs j < n/2, over N = 2n. The DFTs are products with the m x m
-    matrix of roots: the kernel sums the same terms, one at a time."""
+    With mh = (m + 1)/2, c = N1 mod m and the m roots r[e] = w_m^e = w^{2 N1
+    e} from the twiddle table, the matrix B[k][n] = r[c k n mod m] (k, n <
+    mh) as its real and imaginary parts C and -S. 1. The frame as it lies in
+    memory, A[j1][i] = z[j1 + N1 i] (zero from n/2 on, i < mh), times C and
+    S on the tensor cores (`_mma`): the four sums AC, BS, BC, AS give Y[k2]
+    = r[j1 k2] ((AC + BS) + i (BC - AS)) and Y[m - k2] = conj(r[j1 k2])
+    ((AC - BS) + i (BC + AS)) in row k2 of a buffer of m rows of N1 points;
+    2. the rows' N1-point FFTs; 3. the split of each pair (k, n - k), k <=
+    n/2, (k1, k2) = (k m^-1 mod N1, k N1^-1 mod m); 4. the rows' inverse
+    FFTs; 5. the fold, a = V[k2] conj(r[j1 k2]), b = V[m - k2] r[j1 k2], P
+    = a + b, M = a - b (k2 = 0: P = V[0], M = 0), and the outputs j = j1 +
+    N1 i < n/2 as (C P_re - S M_im) + i (C P_im + S M_re) over N."""
     B, n = x.shape
     rdt = x.dtype.type
     cdt = np.complex64 if rdt is np.float32 else np.complex128
     n1 = n & -n
     m, nh = n // n1, n // 2
+    mh = (m + 1) // 2
     ang = 2.0 * np.pi * np.arange(n) / (2 * n)
     tw = (np.cos(ang).astype(rdt) + 1j * (-np.sin(ang)).astype(rdt)).astype(cdt)  # ops/ct_fused.py's table
-    roots = _tw_at(tw, 2 * n1 * np.arange(m))[np.outer(np.arange(m), np.arange(m)) % m]  # w_m^{j2 k2}
-    j = np.arange(nh)
-    grid = np.zeros((B, m, n1), cdt)
-    grid[:, j % m, j % n1] = x[:, 0::2] + 1j * x[:, 1::2]
-    Z = _rows_fft((roots @ grid).reshape(B * m, n1), tw, False).reshape(B, m, n1)
+    r = _tw_at(tw, 2 * n1 * np.arange(m))
+    h = np.arange(mh)
+    e = (n1 % m) * np.outer(h, h) % m
+    bc, bs = r.real[e], -r.imag[e]
+    zp = np.zeros((B, mh * n1), cdt)
+    zp[:, :nh] = x[:, 0::2] + 1j * x[:, 1::2]
+    a = zp.reshape(B, mh, n1).transpose(0, 2, 1)
+    ar, ai = a.real.copy(), a.imag.copy()
+    AC, BS, BC, AS = _mma(ar, bc), _mma(ai, bs), _mma(ai, bc), _mma(ar, bs)
+    om = r[(np.arange(n1) % m)[:, None] * h[None, :] % m]  # r[j1 k2]
+    Y = np.empty((B, m, n1), cdt)
+    Y[:, :mh] = (((AC + BS) + 1j * (BC - AS)).astype(cdt) * om).transpose(0, 2, 1)
+    Y[:, m - h[1:]] = (((AC - BS) + 1j * (BC + AS)).astype(cdt) * np.conj(om))[:, :, 1:].transpose(0, 2, 1)
+    Z = _rows_fft(Y.reshape(B * m, n1), tw, False).reshape(B, m, n1)
     k = np.arange(nh + 1)
     k1, k2 = k * pow(m, -1, n1) % n1, k * pow(n1, -1, m) % m
     p1, p2 = -k1 % n1, -k2 % m  # n - k
@@ -160,7 +195,13 @@ def _model_ct_fused_pfa(x):
     W[:, p2[mid], p1[mid]] = ((S - tw[k].imag * D) + 1j * (tw[k].real * D)).astype(cdt)[:, mid]
     W[:, k2, k1] = ((S + tw[k].imag * D) + 1j * (tw[k].real * D)).astype(cdt)
     V = _rows_fft(W.reshape(B * m, n1), tw, True).reshape(B, m, n1)
-    y = (np.conj(roots) @ V)[:, j % m, j % n1] * rdt(1.0 / (2 * n))
+    va = V[:, h].transpose(0, 2, 1) * np.conj(om)
+    vb = V[:, (m - h) % m].transpose(0, 2, 1) * om
+    P, M = va + vb, va - vb
+    P[:, :, 0], M[:, :, 0] = V[:, 0], 0
+    re = _mma(P.real.copy(), bc) + _mma(-M.imag, bs)
+    im = _mma(P.imag.copy(), bc) + _mma(M.real.copy(), bs)
+    y = (re + 1j * im).astype(cdt).transpose(0, 2, 1).reshape(B, mh * n1)[:, :nh] * rdt(1.0 / (2 * n))
     return half, np.stack([y.real, y.imag], axis=-1).reshape(B, n)
 
 
@@ -175,9 +216,9 @@ def test_pfa_model_matches_fft_f64(n):
 
 
 def test_pfa_model_matches_plain_f32():
-    """Float32 arithmetic throughout at 20,096 = 128 x 157, the largest
-    prime factor: within CT_FUSED_F32_TOL of each frame's largest value of
-    the plain version, the card's tolerance for the kernel."""
+    """Float32 arithmetic and the TF32 passes at 20,096 = 128 x 157, the
+    largest prime factor: within CT_FUSED_F32_TOL of each frame's largest
+    value of the plain version, the card's tolerance for the kernel."""
     n = 20096
     x = _frames(n, 3, np.float32, seed=9)
     half, ac = _model_ct_fused_pfa(x)
@@ -185,6 +226,205 @@ def test_pfa_model_matches_plain_f32():
     hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
     assert _frame_scaled_err(half, hp.numpy()) <= CT_FUSED_F32_TOL
     assert _frame_scaled_err(ac, ap.numpy()) <= CT_FUSED_F32_TOL
+
+
+@pytest.mark.parametrize("n", [20608, 12288])
+def test_pfa_model_f32_at_the_odd_factors_ends(n):
+    """The same at the largest odd factor, 20,608 = 128 x 161 (the longest
+    K loops of the TF32 products), and the smallest, 12,288 = 4096 x 3
+    (the longest rows), against the plain version and the float64 FFT."""
+    x = _frames(n, 3, np.float32, seed=5)
+    half, ac = _model_ct_fused_pfa(x)
+    hp, ap = ct_fused.ct_fused_power_ac_plain(torch.as_tensor(x), 2 * n)
+    hf, af = _fft_reference(x)
+    assert max(_frame_scaled_err(half, hp.numpy()), _frame_scaled_err(ac, ap.numpy())) <= CT_FUSED_F32_TOL
+    assert max(_frame_scaled_err(half, hf), _frame_scaled_err(ac, af)) <= CT_FUSED_F32_TOL
+
+
+def _mod_m(a, m):
+    """ModM: a mod m by the float32 reciprocal of m, the product truncated,
+    and one correction each way."""
+    a = np.asarray(a, np.int64)
+    q = np.trunc(a.astype(np.float32) * (np.float32(1) / np.float32(m))).astype(np.int64)
+    r = a - q * m
+    r = np.where(r < 0, r + m, r)
+    return np.where(r >= m, r - m, r)
+
+
+# The kernel's fragment shapes (csrc/ct_fused.cu's Tc): float32 m16n8k8, float64 m8n8k4.
+_TC = {"f32": dict(kM=16, kN=8, kK=8, kP=8), "f64": dict(kM=8, kN=8, kK=4, kP=4)}
+
+
+def _frag_rows_cols(dname):
+    """Per lane (g, t) = (lane / 4, lane % 4): the (row, col) of each A
+    element, the K row of each B element, the (row, col) of each C element."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    if dname == "f32":
+        a = [(g + 8 * (e & 1), t + 4 * (e >> 1)) for e in range(4)]
+        b = [t + 4 * e for e in range(2)]
+        c = [(g + 8 * (e >> 1), 2 * t + (e & 1)) for e in range(4)]
+    else:
+        a, b, c = [(g, t)], [t], [(g, 2 * t + e) for e in range(2)]
+    return g, t, a, b, c
+
+
+@pytest.mark.parametrize("n", NEW_NS)
+def test_pfa_index_walks_match_the_crt_maps(n):
+    """Every index the prime-factor kernel steps by addition (csrc/ct_fused.cu),
+    in both fragment shapes, against its definition by the CRT maps:
+    - ModM equals % on every argument the kernel gives it;
+    - the B fragments' walk along K (BWalk) reads r[c k n mod m], and
+      r[(j1 + c i) k2] = r[(j mod m) k2] for j = j1 + N1 i: the product with
+      the fixed matrix and the turn by r[j1 k2] give w_m^{j2 k2};
+    - step 1 reads each of the n/2 points once a chunk, and writes each of
+      the m rows' N1 columns once, its turn index et = j1 k2 mod m;
+    - the fold's index e = j1 k2 mod m at each (j1, k2), each pair once;
+    - step 5 writes each output j < n/2 once;
+    - the split's k2, stepped by kPfaThreads N1^-1 mod m, is k N1^-1 mod m,
+      and (k1, k2) is k's CRT pair: k = m k1 + N1 k2 mod n."""
+    n1 = n & -n
+    m, nh = n // n1, n // 2
+    mh, c = (m + 1) // 2, n1 % m
+    threads = {"f32": ct_fused._pfa_threads(n, torch.float32), "f64": ct_fused._pfa_threads(n, torch.float64)}
+    args = []
+
+    def walk(start, step, count):
+        """start, start + step, ... mod m as the kernel steps them: e += step; e -= e >= m ? m : 0."""
+        out = [start]
+        for _ in range(count - 1):
+            e = out[-1] + step
+            out.append(np.where(e >= m, e - m, e))
+        return out
+
+    for dname, tc in _TC.items():
+        kM, kN, kK, kP = tc["kM"], tc["kN"], tc["kK"], tc["kP"]
+        g, t, a_el, b_el, c_el = _frag_rows_cols(dname)
+        reads, outs = np.zeros(nh, np.int64), np.zeros(nh, np.int64)
+        writes = np.zeros((m, n1), np.int64)
+        if mh <= kP:
+            # Pack: one tile, `groups` groups of mhp = 2^sh, block-diagonal.
+            sh = (mh - 1).bit_length()
+            groups, lo = kP >> sh, (1 << sh) - 1
+            span = groups * kM
+            stride = threads[dname] // 32 * span
+            j0 = np.arange(0, n1, span)[:, None]
+            # The tile at j0 = 0 as a product: A (kM x kK) from the points each
+            # lane loads, B (kK x kN) block-diagonal, w_m^{c k n} in its group's
+            # block; each live C element is its column's sum over i < mh.
+            z = np.exp(1j * np.arange(nh))
+            A, Bm = np.zeros((kM, kK), complex), np.zeros((kK, kN), complex)
+            for ar, ac_ in a_el:
+                i = ac_ & lo
+                j = np.where(i < mh, i * n1, nh) + (ac_ >> sh) * kM + ar
+                A[ar, ac_] = np.where(j < nh, z[np.minimum(j, nh - 1)], 0)
+            for br in b_el:
+                live = ((br >> sh) == (g >> sh)) & ((g >> sh) < groups) & ((br & lo) < mh) & ((g & lo) < mh)
+                args += [c * (br & lo) * (g & lo)]
+                Bm[br, g] = np.where(live, np.exp(-2j * np.pi * _mod_m(c * (br & lo) * (g & lo), m) / m), 0)
+            C = A @ Bm
+            for cr, cc in c_el:
+                for lane in range(32):
+                    k2 = cc[lane] & lo
+                    if (cc[lane] >> sh) < groups and k2 < mh:
+                        j1 = (cc[lane] >> sh) * kM + cr[lane]
+                        i = np.arange(mh)
+                        jj = i * n1 + j1
+                        want = (np.where(jj < nh, z[np.minimum(jj, nh - 1)], 0) * np.exp(-2j * np.pi * c * i * k2 / m)).sum()
+                        assert abs(C[cr[lane], cc[lane]] - want) < 1e-9
+            for ar, ac_ in a_el:  # step 1's points and step 5's folded rows
+                aoff = (ac_ >> sh) * kM + ar
+                i = ac_ & lo
+                j = np.where(i < mh, i * n1, nh) + j0 + aoff
+                np.add.at(reads, j[j < nh], 1)
+                for cr, cc in c_el:  # an A column and a C column of one group share their columns j1
+                    same = (ac_ >> sh)[:, None] == (cc >> sh)[None, :]
+                    assert ((aoff - ar)[:, None] == ((cc >> sh) * kM)[None, :])[same].all()
+            for cr, cc in c_el:
+                coff = (cc >> sh) * kM + cr
+                k2 = np.broadcast_to(np.where(((cc >> sh) < groups) & ((cc & lo) < mh), cc & lo, mh), (len(j0), 32))
+                j1 = j0 + coff
+                ok = k2 < mh
+                np.add.at(writes, (k2[ok], j1[ok]), 1)
+                np.add.at(writes, ((m - k2)[ok & (k2 > 0)], j1[ok & (k2 > 0)]), 1)
+                k2z = np.where(k2 < mh, k2, 0)
+                args += [coff + np.arange(0, threads[dname] // 32)[:, None] * span, stride]
+                for w in range(threads[dname] // 32):  # each warp's turn index, stepped from its first tile
+                    first = w * span
+                    e = _mod_m(_mod_m(first + coff, m) * k2z[0], m)
+                    for jj in range(first, n1, stride):
+                        assert np.array_equal(e[ok[0]], ((jj + coff) * k2z[0])[ok[0]] % m)
+                        e = e + _mod_m(_mod_m(stride, m) * k2z[0], m)
+                        e = np.where(e >= m, e - m, e)
+                j = np.where(((cc >> sh) < groups) & ((cc & lo) < mh), (cc & lo) * n1, nh) + j0 + coff
+                np.add.at(outs, j[j < nh], 1)
+            assert (reads == 1).all() and (writes == 1).all() and (outs == 1).all()
+            continue
+        tiles, ksteps = -(-mh // kN), -(-mh // kK)
+        for tile in range(tiles):
+            col = tile * kN + g  # the B column of each lane
+            args += [kK * c * col] + [c * br * col for br in b_el]
+            for br in b_el:
+                got = walk(_mod_m(c * br * col, m), _mod_m(kK * c * col, m), ksteps)
+                assert all(np.array_equal(e, c * (br + kK * k) * col % m) for k, e in enumerate(got))
+        j0 = np.arange(0, n1, kM)[:, None]  # every M tile, against every lane
+        for k in range(ksteps):
+            for ar, ac_ in a_el:
+                j = ((k * kK + ac_) * n1 + j0 + ar).ravel()
+                reads += np.bincount(j[j < nh], minlength=nh)
+        assert (reads == 1).all()
+        # Step 1's writes and turns (chunk kPfaChunk), step 5's outputs (kPfaChunk5).
+        for chunk, step1 in ((ct_fused._PFA_CHUNK, True), (ct_fused._PFA_CHUNK5, False)):
+            for t0 in range(0, tiles, chunk):
+                for cr, cc in c_el:
+                    j1 = np.broadcast_to(j0 + cr, (len(j0), 32))
+                    k2s = [(t0 + q) * kN + np.broadcast_to(cc, j1.shape) for q in range(chunk)]
+                    if step1:
+                        jm = _mod_m(j1, m)
+                        args += [j1, jm * k2s[0], kN * jm]
+                        turns = walk(_mod_m(jm * k2s[0], m), _mod_m(kN * jm, m), chunk)
+                    for q, k2 in enumerate(k2s):
+                        ok = (t0 + q < tiles) & (k2 < mh)
+                        if step1:
+                            assert np.array_equal(turns[q][ok], (j1 * k2)[ok] % m)
+                            np.add.at(writes, (k2[ok], j1[ok]), 1)
+                            np.add.at(writes, ((m - k2)[ok & (k2 > 0)], j1[ok & (k2 > 0)]), 1)
+                        else:  # outputs j = i N1 + j1, i = k2
+                            j = k2 * n1 + j1
+                            np.add.at(outs, j[(t0 + q < tiles) & (j < nh)], 1)
+        assert (writes == 1).all() and (outs == 1).all()
+    # The CRT identity behind step 1's split of w_m^{j k2}.
+    j = np.arange(n)[:, None]
+    assert np.array_equal((j % n1 + c * (j // n1)) * np.arange(m) % m, (j % m) * np.arange(m) % m)
+    for threads in sorted(set(threads.values())):
+        # The fold: kPer threads a column, each every kPer-th k2 from 1 + tid / kCols.
+        cols = min(n1, threads)
+        per = threads // cols
+        tid = np.arange(threads)[:, None]
+        j1 = tid % cols + np.arange(0, n1, cols)[None, :]
+        first = np.broadcast_to(1 + tid // cols, j1.shape)
+        jm = _mod_m(j1, m)
+        args += [per * jm, jm * first]
+        fold = np.zeros((m, n1), np.int64)
+        for i, e in enumerate(walk(_mod_m(jm * first, m), _mod_m(per * jm, m), -(-mh // per))):
+            k = first + i * per
+            ok = k < mh
+            assert np.array_equal(e[ok], (j1 * k)[ok] % m)
+            np.add.at(fold, (k[ok], j1[ok]), 1)
+            np.add.at(fold, ((m - k)[ok], j1[ok]), 1)
+        assert (fold[1:] == 1).all() and (fold[0] == 0).all()
+        # The split: k = tid + s kPfaThreads <= n/2, k2 stepped from (tid N1^-1) mod m.
+        inv_m, inv_n1 = pow(m, -1, n1), pow(n1, -1, m)
+        tid = np.arange(threads)
+        steps = -(-(nh + 1) // threads)
+        for s_, k2 in enumerate(walk(tid * inv_n1 % m, threads * inv_n1 % m, steps)):
+            k = tid + s_ * threads
+            live = k <= nh
+            k1 = (k * inv_m) & (n1 - 1)
+            assert np.array_equal(k2[live], (k * inv_n1 % m)[live])
+            assert np.array_equal(((m * k1 + n1 * k2) % n)[live], k[live])
+    a = np.concatenate([np.ravel(v) for v in args])
+    assert a.max() < 1 << 24 and np.array_equal(_mod_m(a, m), a % m)
 
 
 def test_layouts():

@@ -76,8 +76,9 @@
 // need at most 64 a thread), 1 in float64. At bench shapes it takes
 // 0.552 ms in float32, 2.9 times its bound (chip_smoke.py, NVIDIA H100
 // 80GB HBM3, 700 W). The prime-factor kernel (lengths that are not powers
-// of two): 101-118 registers in float32 at 512 threads, 180-208 in float64
-// at 256, 0 bytes of stack frame and spill in all 18 instantiations.
+// of two): float32 212-232 registers at 256 threads (N1 <= 1024) and
+// 125-128 at 512 (N1 >= 2048), float64 148-217 at 256, 0 bytes of stack
+// frame and spill in all 30 instantiations.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -526,57 +527,577 @@ __global__ void __launch_bounds__(Plan<T, L>::kThreads, 1)
 // Each n-point transform is a prime-factor (Good-Thomas) split of n =
 // N1 x m: since gcd(N1, m) = 1, with j1 = j mod N1, j2 = j mod m on the
 // time side and k = (m k1 + N1 k2) mod n on the frequency side,
-//   Z[k] = sum_{j1} w_N1^{j1 k1} sum_{j2} w_m^{j2 k2} z[j],
-// so no twiddles lie between the two axes. The frame lives in a buffer of
-// m rows of N1 points, row k2 (or j2) holding one N1-point transform:
-// 1. the m-point DFTs from the input: Y[k2][j1] = sum_i z[j1 + N1 i]
-//    w_m^{j2 k2}, j2 = (j1 + N1 i) mod m, over the n/2 nonzero points only
-//    (i with j1 + N1 i < n/2). A thread sums kPfaOuts outputs k2 of one
-//    column j1 at once, a warp's reads of z contiguous in j1. The roots
-//    w_m^e, e < m, sit in shared memory, taken from the table of w = e^{-2 pi
-//    i / N} (w_m = w^{2 N1}), so no sincos runs on the card;
+//   Z[k] = sum_{j1} w_N1^{j1 k1} sum_{j2} w_m^{j2 k2} z[j].
+// The frame lives in a buffer of m rows of N1 points, row k2 holding one
+// N1-point transform. The m-point DFTs (steps 1 and 5) are products with
+// the m x m DFT matrix on the tensor cores:
+// 1. Walking j = j1 + N1 i (i < m), j2 = (j1 + N1 i) mod m, so
+//      Y[k2][j1] = w_m^{j1 k2} sum_i z[j1 + N1 i] w_m^{c i k2},  c = N1 mod m:
+//    one product of the frame as it lies in memory (rows i, columns j1)
+//    with a fixed matrix, then a turn by w_m^{j1 k2}. z is zero from n/2
+//    on, so i < (m + 1)/2 = mh; and w_m^{c i (m - k2)} is the conjugate of
+//    w_m^{c i k2}, so with C + i S the matrix's real and imaginary parts at
+//    k2 < mh, the four real products z_re C, z_im S, z_im C, z_re S (each
+//    (N1 x mh) @ (mh x mh)) give the outputs k2 and m - k2 together:
+//    Y[k2] = w^{j1 k2} ((AC + BS) + i (BC - AS)), Y[m - k2] = w^{-j1 k2}
+//    ((AC - BS) + i (BC + AS)). A quarter of the operations of the m x m
+//    complex product over the whole buffer.
 // 2. the N1-point FFTs along each row, in the radix-16 Stockham passes of
 //    the kernels above (N1 / 16 threads a row, 16 values a thread, the
 //    block's rows a round at a time);
 // 3. the split of each pair (k, n - k), k <= n/2, by one thread in place:
-//    k1 = k m^-1 mod N1 and k2 = k N1^-1 mod m (the host passes both
+//    k1 = k m^-1 mod N1 (a mask) and k2 = k N1^-1 mod m, stepped by
+//    addition from one k to the thread's next (the host passes both
 //    inverses), the partner at (-k1, -k2); it writes P[k] and P[n - k] to
 //    the half spectrum and W[k] and W[n - k] over Z;
 // 4. the inverse N1-point FFTs along the rows;
-// 5. the inverse m-point DFTs: output j < n/2 sums V[k2][j mod N1]
-//    w_m^{-(j mod m) k2} over k2 (the even k2 and the odd in two sums),
-//    stored as ac[2j], ac[2j+1] over N: a warp's stores contiguous.
-// A direct m-point DFT costs m complex multiply-adds an output where an FFT
-// costs log m: at m = 157 about 8 n m operations a frame against the power
-// of two's 10 n log2 n. A simple kernel first: at 20,096 = 128 x 157 it
-// takes 8.401 ms for 3,130 float32 frames, 45 times the function's bound
-// (0.188 ms, its bytes) and 6.7 times the 1.26 ms that its own direct
-// DFTs' operations need (its index arithmetic and the roots' shared-memory
-// reads beside each multiply-add); at 2,176 = 128 x 17 2.675 ms for 28,932
-// frames, 14 times the function's bound (chip_smoke.py phase 14; PERF.md
-// has the times beside cuFFT's; NVIDIA H100 80GB HBM3, 700 W).
+// 5. the fold, in place (`pfa_fold`): for 0 < k2 < mh, a = V[k2] w^{-j1 k2}
+//    and b = V[m - k2] w^{j1 k2} give P = a + b in row k2 and M = a - b in
+//    row m - k2 (row 0 keeps V[0] as P, with M = 0); then the inverse
+//    m-point DFTs for the outputs j = j1 + N1 i < n/2 alone (i < mh):
+//    out[i][j1] = sum_{k2 < mh} (C P_re - S M_im) + i (C P_im + S M_re),
+//    four real products (N1 x mh) @ (mh x mh), stored as ac[2j], ac[2j+1]
+//    over N.
+// The products run on mma.sync (`Tc`): float32 as m16n8k8 on TF32 in
+// three passes (a = a_hi + a_lo, each rounded to TF32's 10 mantissa bits,
+// to nearest: a_lo b_hi + a_hi b_lo + a_hi b_hi, the dropped a_lo b_lo
+// about 2^-22 of a product), into a fresh sum each K tile that the CUDA
+// cores add up (the tensor cores' float32 sums truncate); float64 as
+// m8n8k4 on the FP64 tensor cores. Where mh > kP (m > 15 in float32, > 7
+// in float64) a warp takes an M tile of 16 (float64 8) columns j1 and a
+// chunk of N tiles of 8 (kPfaChunk in step 1, whose outputs are four
+// sums; kPfaChunk5 in step 5, two sums), the K loop over mh. Where mh <=
+// kP one tile holds the whole product and its padding would be zeros:
+// there `Pack` puts kP / mhp M subtiles' columns into one tile's K and N,
+// the matrix block-diagonal (m = 3: four subtiles a tile, every lane's
+// output live), its B fragments built once a stage. The matrix's entries
+// are w_m^{c k n mod m}: one table of the m roots w_m^e in shared memory
+// (from the table of w = e^{-2 pi i / N}, w_m = w^{2 N1}), the index
+// stepped by addition along K and from tile to tile (no % on an element's
+// path; a tile's setup takes a few modulos by a float reciprocal, `ModM`),
+// split to TF32 as it is read.
+// Persistent blocks, one an SM (`PfaPlan`), walk the frames: 256 threads
+// (float32 up to about 230 registers, float64 255), or in float32 where
+// N1 >= 2048 (m <= 9: the packed tiles alone) 512 threads at up to 128,
+// two rows a round of the 4096-point FFTs. Where the staged block fits
+// (`pfa_staged`: n <= 19,200 in float32, 9,600 in float64), the next
+// frame's n/2 input points arrive in shared memory by one bulk copy
+// (cp.async.bulk onto an mbarrier) while the current frame runs steps
+// 2-5; otherwise step 1 reads them from device memory, the next K tile's
+// points loaded before the current one's products. Staging pays where
+// frames are short: at 2,176 float64 2.385 ms staged against 2.818 and
+// 2.823 read from device memory, float32 1.863 and 1.955 against 1.991
+// and 2.000; at 12,288 within 1% (chip_smoke.py --kernel-e, the two in
+// turns, NVIDIA H100 80GB HBM3, 700 W).
 // The buffer is the block's shared memory (n + m complex values: 165 KB at
-// 20,608 in float32), or, in float64 above 14,336 points, where n + m
-// values outgrow the 227 KB a block may have, a slice of a scratch buffer
-// in device memory that the wrapper allocates (kDev: one slice a block, the
-// blocks walking the frames; the slices of all blocks stay in L2). Within a
-// block __syncthreads orders the accesses to either.
-// Threads a block: float32 512 (at most 128 registers a thread; one block
-// an SM, its shared memory binds), float64 256 (up to 255 registers).
+// 20,608 in float32, plus n/2 for the staged input), or, in float64 above
+// 14,336 points, where n + m values outgrow the 227 KB a block may have, a
+// slice of a scratch buffer in device memory that the wrapper allocates
+// (kDev: one slice a block, one block an SM; the slices stay in L2).
+// Within a block __syncthreads orders the accesses to either.
+// What bounds it: the function's bytes (0.188 ms at each of 2,176, 12,288
+// and 20,096 on the recording, float32); its tensor-core products alone
+// take 0.092, 0.033 and 0.249 ms at the TF32 rate. It takes 1.863-1.955,
+// 1.198-1.204 and 2.086-2.090 ms there, 6-11 times the bound (its first
+// version, direct m-point DFTs on the CUDA cores: 2.680-2.700,
+// 1.329-1.336 and 8.490-8.508 in the same call; X3 2.247-2.290,
+// 1.684-1.711, 2.236-2.260); float64 2.385, 2.276-2.277 and, with the
+// buffer in device memory, 9.160-9.171 (the first version 4.013-4.014,
+// 2.350-2.378, 26.284-26.578; cuFFT 6.79-6.80, 7.20-7.22, 20.73-20.75)
+// (chip_smoke.py --kernel-e, NVIDIA H100 80GB HBM3, 700 W). One block of 8-16
+// warps an SM waits on its barriers and on the row FFTs' shared-memory
+// passes, which it does not overlap with the products.
+constexpr int kPfaThreads = 256;    // 8 warps a block ...
+constexpr int kPfaWideThreads = 512;  // ... 16 in float32 where N1 >= 2^kPfaWideLog2
+constexpr int kPfaWideLog2 = 11;
+constexpr int kPfaChunk = 2;        // N tiles a warp's step-1 accumulators hold (four sums each)
+constexpr int kPfaChunk5 = 4;       // N tiles of step 5 (two sums each)
+constexpr int kPfaMinLog2 = 7;      // N1 = 2^Q from 128 ...
+constexpr int kPfaMaxLog2 = 12;     // ... to 4096 (n = 4096 x 5 = 20,480)
+constexpr int kMaxN = 20608;        // voxtpu's largest frame: 128 x 161
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may have (227 KB)
+
+// Whether a frame of n = N1 m in the shared layout stages its input: where
+// the staged block fits (one block an SM either way: see PfaPlan).
 template <typename T>
-constexpr int kPfaThreads = sizeof(T) == 4 ? 512 : 256;
-constexpr int kPfaOuts = 8;        // m-point DFT outputs a thread sums at once
-constexpr int kPfaMinLog2 = 7;     // N1 = 2^Q from 128 ...
-constexpr int kPfaMaxLog2 = 12;    // ... to 4096 (n = 4096 x 5 = 20,480)
-constexpr int kMaxN = 20608;       // voxtpu's largest frame: 128 x 161
-constexpr int kSmemLimit = 232448; // bytes of shared memory a block may have (227 KB)
+bool pfa_staged(int n, int m) {
+  return (n + n / 2 + m) * 2 * sizeof(T) + 8 <= static_cast<size_t>(kSmemLimit);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// a mod m for 0 <= a < 2^24, by a float reciprocal and a correction each
+// way: the setup of a tile's index walks (no % on an element's path).
+struct ModM {
+  int m;
+  float inv;
+  __device__ explicit ModM(int m_) : m(m_), inv(1.0f / static_cast<float>(m_)) {}
+  __device__ int operator()(int a) const {
+    int r = a - __float2int_rz(__int2float_rn(a) * inv) * m;
+    r += r < 0 ? m : 0;
+    return r - (r >= m ? m : 0);
+  }
+};
+
+// One warp's tensor-core product tile: its fragments' element positions
+// (g = lane / 4, t = lane % 4) and the product. `add` adds a b to acc.
+template <typename T>
+struct Tc;
+
+// float32: mma.sync m16n8k8 on TF32 in three passes, into a fresh sum for
+// each K tile that is then added to acc on the CUDA cores: the tensor
+// cores' float32 sums truncate, and one chain of mma over the whole K loop
+// carried that bias to 3.2e-6 of a frame's largest value at 20,096 = 128 x
+// 157 against the 4e-6 allowed (a development version timed by a copy of
+// chip_smoke.py's phase 14, not kept; with the fresh sums 5.6e-7 of the
+// float64 FFT there, and at most 6.4e-7 on phase 8's noise at the 153
+// lengths: chip_smoke.py --kernel-e, NVIDIA H100 80GB HBM3).
+template <>
+struct Tc<float> {
+  static constexpr int kM = 16, kN = 8, kK = 8, kP = 8, kA = 4, kB = 2, kC = 4;
+  struct A {
+    uint32_t hi[kA], lo[kA];
+  };
+  struct B {
+    uint32_t hi[kB], lo[kB];
+  };
+  __device__ static int a_row(int e, int g) { return g + 8 * (e & 1); }
+  __device__ static int a_col(int e, int t) { return t + 4 * (e >> 1); }
+  __device__ static int b_row(int e, int t) { return t + 4 * e; }
+  __device__ static int c_row(int e, int g) { return g + 8 * (e >> 1); }
+  __device__ static int c_col(int e, int t) { return 2 * t + (e & 1); }
+  template <typename F>
+  __device__ static void set(F& f, int e, float v) {
+    f.hi[e] = tf32_rna(v);
+    f.lo[e] = tf32_rna(v - __uint_as_float(f.hi[e]));
+  }
+  __device__ static void one(float (&c)[kC], const uint32_t (&a)[kA], const uint32_t (&b)[kB]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ static void add(float (&acc)[kC], const A& a, const B& b) {
+    float s[kC] = {0.f, 0.f, 0.f, 0.f};
+    one(s, a.lo, b.hi);
+    one(s, a.hi, b.lo);
+    one(s, a.hi, b.hi);
+#pragma unroll
+    for (int e = 0; e < kC; ++e) acc[e] += s[e];
+  }
+};
+
+// float64: mma.sync m8n8k4 on the FP64 tensor cores, one pass into acc.
+template <>
+struct Tc<double> {
+  static constexpr int kM = 8, kN = 8, kK = 4, kP = 4, kA = 1, kB = 1, kC = 2;
+  struct A {
+    double v[kA];
+  };
+  struct B {
+    double v[kB];
+  };
+  __device__ static int a_row(int, int g) { return g; }
+  __device__ static int a_col(int, int t) { return t; }
+  __device__ static int b_row(int, int t) { return t; }
+  __device__ static int c_row(int, int g) { return g; }
+  __device__ static int c_col(int e, int t) { return 2 * t + e; }
+  template <typename F>
+  __device__ static void set(F& f, int e, double v) {
+    f.v[e] = v;
+  }
+  __device__ static void add(double (&acc)[kC], const A& a, const B& b) {
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+        : "+d"(acc[0]), "+d"(acc[1])
+        : "d"(a.v[0]), "d"(b.v[0]));
+  }
+};
+
+// The prime-factor kernel's launch at N1 = 2^Q. One block an SM: float32
+// at 256 threads keeps up to about 230 registers a thread; where N1 >=
+// 2048, whose m is at most 9 (so steps 1 and 5 take the packed tiles
+// alone), 512 threads at most 128 registers, two rows a round of its
+// 4096-point FFTs. kLarge: whether some m at this N1 takes more than one
+// tile (mh > kP), so that the chunked steps are built at all.
+template <typename T, int Q>
+struct PfaPlan {
+  static constexpr bool kWide = sizeof(T) == 4 && Q >= kPfaWideLog2;
+  static constexpr int kThreads = kWide ? kPfaWideThreads : kPfaThreads;
+  static constexpr int kMaxM = ((kMaxN >> Q) - 1) | 1;  // the largest odd m with N1 m <= kMaxN
+  static constexpr bool kLarge = (kMaxM + 1) / 2 > Tc<T>::kP;
+};
+
+// The matrix's B fragments of N tile `tile` (columns n = tile kN + g) as
+// the K loop walks: entry (k, n) is roots[c k n mod m]; e holds the index
+// of each fragment element, d its step from one K tile to the next.
+template <typename T>
+struct BWalk {
+  using M = Tc<T>;
+  int e[M::kB], d;
+  __device__ void start(int tile, int c, const ModM& mod, int g, int t) {
+    const int col = tile * M::kN + g;
+    d = mod(M::kK * c * col);
+#pragma unroll
+    for (int i = 0; i < M::kB; ++i) e[i] = mod(c * M::b_row(i, t) * col);
+  }
+  // The fragments of C and S at the current K tile, then a step along K.
+  __device__ void next(const typename Vec2<T>::type* roots, int m, typename M::B& bc, typename M::B& bs) {
+#pragma unroll
+    for (int i = 0; i < M::kB; ++i) {
+      const auto r = roots[e[i]];
+      M::set(bc, i, r.x);
+      M::set(bs, i, -r.y);
+      e[i] += d;
+      e[i] -= e[i] >= m ? m : 0;
+    }
+  }
+};
+
+// Step 1: Y[k2][j1] for every k2 < m from the frame's n/2 points `src`
+// (shared memory where kStaged, else device memory), into buf. A warp
+// walks its (M tile, chunk) items and each item's K tiles as one loop, the
+// next step's points loaded before the current step's products.
+template <typename T, int Q, bool kStaged>
+__device__ __forceinline__ void pfa_dft_in(const typename Vec2<T>::type* src, typename Vec2<T>::type* buf,
+                                           const typename Vec2<T>::type* roots, int m, const ModM& mod) {
+  using M = Tc<T>;
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kTilesM = N1 / M::kM, kWarps = PfaPlan<T, Q>::kThreads / 32;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (m << Q) / 2, mh = (m + 1) / 2, c = N1 % m;
+  const int tiles = (mh + M::kN - 1) / M::kN, ksteps = (mh + M::kK - 1) / M::kK;
+  const int items = kTilesM * ((tiles + kPfaChunk - 1) / kPfaChunk);
+  auto load = [&](int item, int ks, V (&z)[M::kA]) {
+#pragma unroll
+    for (int e = 0; e < M::kA; ++e) {
+      const int j = (ks * M::kK + M::a_col(e, t)) * N1 + (item % kTilesM) * M::kM + M::a_row(e, g);
+      z[e] = V{T(0), T(0)};
+      if (j < nh) z[e] = kStaged ? src[j] : __ldg(src + j);
+    }
+  };
+  T acc[kPfaChunk][4][M::kC];
+  BWalk<T> walk[kPfaChunk];
+  V z[M::kA];
+  int item = threadIdx.x >> 5, ks = 0;
+  if (item < items) load(item, 0, z);
+#pragma unroll 1
+  while (item < items) {
+    const int j0 = (item % kTilesM) * M::kM, t0 = (item / kTilesM) * kPfaChunk;
+    if (ks == 0) {
+#pragma unroll
+      for (int q = 0; q < kPfaChunk; ++q) {
+        walk[q].start(t0 + q, c, mod, g, t);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+#pragma unroll
+          for (int e = 0; e < M::kC; ++e) acc[q][p][e] = T(0);
+        }
+      }
+    }
+    typename M::A ar, ai;
+#pragma unroll
+    for (int e = 0; e < M::kA; ++e) {
+      M::set(ar, e, z[e].x);
+      M::set(ai, e, z[e].y);
+    }
+    const bool last = ks + 1 == ksteps;
+    const int next_item = last ? item + kWarps : item, next_ks = last ? 0 : ks + 1;
+    if (next_item < items) load(next_item, next_ks, z);
+#pragma unroll
+    for (int q = 0; q < kPfaChunk; ++q) {
+      if (t0 + q < tiles) {
+        typename M::B bc, bs;
+        walk[q].next(roots, m, bc, bs);
+        M::add(acc[q][0], ar, bc);
+        M::add(acc[q][1], ai, bs);
+        M::add(acc[q][2], ai, bc);
+        M::add(acc[q][3], ar, bs);
+      }
+    }
+    if (last) {
+      // Y[k2] and Y[m - k2], turned by w_m^{+-j1 k2}: the roots' index et
+      // steps by kN j1 from one N tile to the next.
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) {
+        const int jm = mod(j0 + M::c_row(e, g)), dt = mod(M::kN * jm), col = sw(j0 + M::c_row(e, g));
+        int et = mod(jm * (t0 * M::kN + M::c_col(e, t)));
+#pragma unroll
+        for (int q = 0; q < kPfaChunk; ++q) {
+          const int k2 = (t0 + q) * M::kN + M::c_col(e, t);
+          if (t0 + q < tiles && k2 < mh) {
+            const T a_c = acc[q][0][e], b_s = acc[q][1][e], b_c = acc[q][2][e], a_s = acc[q][3][e];
+            const V w = roots[et];
+            buf[k2 * N1 + col] = pack(cmul(Cx<T>{a_c + b_s, b_c - a_s}, Cx<T>{w.x, w.y}));
+            if (k2 > 0) buf[(m - k2) * N1 + col] = pack(cmul(Cx<T>{a_c - b_s, b_c + a_s}, Cx<T>{w.x, -w.y}));
+          }
+          et += dt;
+          et -= et >= m ? m : 0;
+        }
+      }
+    }
+    item = next_item;
+    ks = next_ks;
+  }
+}
+
+// Between steps 4 and 5, in place: for k2 = 1 .. mh - 1, with a = V[k2]
+// w_m^{-j1 k2} and b = V[m - k2] w_m^{j1 k2}, row k2 takes P = a + b and row
+// m - k2 takes M = a - b (row 0 keeps V[0]). kPer threads a column j1, each
+// every kPer-th k2, its root's index stepping by kPer j1 mod m.
+template <typename T, int Q>
+__device__ __forceinline__ void pfa_fold(typename Vec2<T>::type* buf, const typename Vec2<T>::type* roots, int m,
+                                         const ModM& mod) {
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kThreads = PfaPlan<T, Q>::kThreads;
+  constexpr int kCols = N1 < kThreads ? N1 : kThreads, kPer = kThreads / kCols;
+  const int mh = (m + 1) / 2, first = 1 + static_cast<int>(threadIdx.x) / kCols;
+#pragma unroll 1
+  for (int j1 = threadIdx.x % kCols; j1 < N1; j1 += kCols) {
+    const int jm = mod(j1), col = sw(j1), step = mod(kPer * jm);
+    int e = mod(jm * first);
+#pragma unroll 2
+    for (int k2 = first; k2 < mh; k2 += kPer) {
+      const V w = roots[e], a = buf[k2 * N1 + col], b = buf[(m - k2) * N1 + col];
+      const Cx<T> u = cmul(Cx<T>{a.x, a.y}, Cx<T>{w.x, -w.y}), v = cmul(Cx<T>{b.x, b.y}, Cx<T>{w.x, w.y});
+      buf[k2 * N1 + col] = pack(cadd(u, v));
+      buf[(m - k2) * N1 + col] = pack(csub(u, v));
+      e += step;
+      e -= e >= m ? m : 0;
+    }
+  }
+}
+
+// Step 5: the outputs j = j1 + N1 i < n/2 of the inverse m-point DFTs from
+// buf's folded rows (P in row k2 < mh, M in row m - k2), over N, into ar.
+template <typename T, int Q>
+__device__ __forceinline__ void pfa_dft_out(const typename Vec2<T>::type* buf, const typename Vec2<T>::type* roots,
+                                            typename Vec2<T>::type* ar, int m, T inv_N, const ModM& mod) {
+  using M = Tc<T>;
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kTilesM = N1 / M::kM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (m << Q) / 2, mh = (m + 1) / 2, c = N1 % m;
+  const int tiles = (mh + M::kN - 1) / M::kN, ksteps = (mh + M::kK - 1) / M::kK;
+  const int items = kTilesM * ((tiles + kPfaChunk5 - 1) / kPfaChunk5);
+#pragma unroll 1
+  for (int item = threadIdx.x >> 5; item < items; item += PfaPlan<T, Q>::kThreads / 32) {
+    const int j0 = (item % kTilesM) * M::kM, t0 = (item / kTilesM) * kPfaChunk5;
+    T acc[kPfaChunk5][2][M::kC];
+    BWalk<T> walk[kPfaChunk5];
+#pragma unroll
+    for (int q = 0; q < kPfaChunk5; ++q) {
+      walk[q].start(t0 + q, c, mod, g, t);
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) acc[q][0][e] = acc[q][1][e] = T(0);
+    }
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      typename M::A pr, pi, nmi, mr;
+#pragma unroll
+      for (int e = 0; e < M::kA; ++e) {
+        const int k2 = ks * M::kK + M::a_col(e, t), col = sw(j0 + M::a_row(e, g));
+        V p = {T(0), T(0)}, d = {T(0), T(0)};
+        if (k2 < mh) p = buf[k2 * N1 + col];
+        if (k2 > 0 && k2 < mh) d = buf[(m - k2) * N1 + col];
+        M::set(pr, e, p.x);
+        M::set(pi, e, p.y);
+        M::set(nmi, e, -d.y);
+        M::set(mr, e, d.x);
+      }
+#pragma unroll
+      for (int q = 0; q < kPfaChunk5; ++q) {
+        if (t0 + q < tiles) {
+          typename M::B bc, bs;
+          walk[q].next(roots, m, bc, bs);
+          M::add(acc[q][0], pr, bc);
+          M::add(acc[q][0], nmi, bs);
+          M::add(acc[q][1], pi, bc);
+          M::add(acc[q][1], mr, bs);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPfaChunk5; ++q) {
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) {
+        const int j = ((t0 + q) * M::kN + M::c_col(e, t)) * N1 + j0 + M::c_row(e, g);
+        if (t0 + q < tiles && j < nh) ar[j] = V{acc[q][0][e] * inv_N, acc[q][1][e] * inv_N};
+      }
+    }
+  }
+}
+
+// Steps 1 and 5 where mh fits one K tile (mh <= kP = min(kK, kN): m <= 15
+// in float32, m <= 7 in float64): the tile's K and N hold `groups` = kP /
+// mhp groups (mhp the power of two >= mh), group p for M subtile p, the
+// matrix block-diagonal in the fragments, so that the padding of a small
+// m carries other columns j1 and not zeros. The B fragments are then the
+// same for every tile: built once a stage.
+template <typename T>
+struct Pack {
+  using M = Tc<T>;
+  int sh, groups, span;  // mhp = 1 << sh; a tile covers span = groups kM columns j1
+  typename M::B bc, bs;  // the block-diagonal matrix's C and S
+  __device__ Pack(int m, int mh, int c, const typename Vec2<T>::type* roots, const ModM& mod, int g, int t) {
+    sh = 0;
+    while ((1 << sh) < mh) ++sh;
+    groups = M::kP >> sh;
+    span = groups * M::kM;
+    const int lo = (1 << sh) - 1;
+#pragma unroll
+    for (int e = 0; e < M::kB; ++e) {
+      const int k = M::b_row(e, t);
+      const bool live = (k >> sh) == (g >> sh) && (g >> sh) < groups && (k & lo) < mh && (g & lo) < mh;
+      const auto r = roots[live ? mod(c * (k & lo) * (g & lo)) : 0];
+      M::set(bc, e, live ? r.x : T(0));
+      M::set(bs, e, live ? -r.y : T(0));
+    }
+  }
+};
+
+// Step 1 where mh <= kP: as pfa_dft_in, a warp's tiles `span` columns
+// apart, the next tile's points loaded before the current tile's products.
+template <typename T, int Q, bool kStaged>
+__device__ __forceinline__ void pfa_dft_in_small(const typename Vec2<T>::type* src, typename Vec2<T>::type* buf,
+                                                 const typename Vec2<T>::type* roots, int m, const ModM& mod) {
+  using M = Tc<T>;
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kWarps = PfaPlan<T, Q>::kThreads / 32;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (m << Q) / 2, mh = (m + 1) / 2;
+  const Pack<T> pk(m, mh, N1 % m, roots, mod, g, t);
+  const int lo = (1 << pk.sh) - 1, first = (threadIdx.x >> 5) * pk.span, stride = kWarps * pk.span;
+  // A element e: z[aj[e] + j0 + aoff[e]], row i = aj[e] / N1 (nh: a padding row).
+  int aoff[M::kA], aj[M::kA];
+#pragma unroll
+  for (int e = 0; e < M::kA; ++e) {
+    const int k = M::a_col(e, t);
+    aoff[e] = (k >> pk.sh) * M::kM + M::a_row(e, g);
+    aj[e] = (k & lo) < mh ? (k & lo) * N1 : nh;
+  }
+  // C element e: Y[ck[e]][j0 + coff[e]] (ck = mh: dropped), turned by
+  // roots[et[e]], et stepping by det[e] from one tile to the next.
+  int coff[M::kC], ck[M::kC], et[M::kC], det[M::kC];
+#pragma unroll
+  for (int e = 0; e < M::kC; ++e) {
+    const int n = M::c_col(e, t);
+    coff[e] = (n >> pk.sh) * M::kM + M::c_row(e, g);
+    ck[e] = (n >> pk.sh) < pk.groups && (n & lo) < mh ? n & lo : mh;
+    const int k2 = ck[e] < mh ? ck[e] : 0;
+    et[e] = mod(mod(first + coff[e]) * k2);
+    det[e] = mod(mod(stride) * k2);
+  }
+  auto load = [&](int j0, V (&z)[M::kA]) {
+#pragma unroll
+    for (int e = 0; e < M::kA; ++e) {
+      const int j = aj[e] + j0 + aoff[e];
+      z[e] = V{T(0), T(0)};
+      if (j < nh) z[e] = kStaged ? src[j] : __ldg(src + j);
+    }
+  };
+  V z[M::kA];
+  if (first < N1) load(first, z);
+#pragma unroll 1
+  for (int j0 = first; j0 < N1; j0 += stride) {
+    typename M::A ar, ai;
+#pragma unroll
+    for (int e = 0; e < M::kA; ++e) {
+      M::set(ar, e, z[e].x);
+      M::set(ai, e, z[e].y);
+    }
+    if (j0 + stride < N1) load(j0 + stride, z);
+    T acc[4][M::kC];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int e = 0; e < M::kC; ++e) acc[p][e] = T(0);
+    }
+    M::add(acc[0], ar, pk.bc);
+    M::add(acc[1], ai, pk.bs);
+    M::add(acc[2], ai, pk.bc);
+    M::add(acc[3], ar, pk.bs);
+#pragma unroll
+    for (int e = 0; e < M::kC; ++e) {
+      const int k2 = ck[e], col = sw(j0 + coff[e]);
+      if (k2 < mh) {
+        const T a_c = acc[0][e], b_s = acc[1][e], b_c = acc[2][e], a_s = acc[3][e];
+        const V w = roots[et[e]];
+        buf[k2 * N1 + col] = pack(cmul(Cx<T>{a_c + b_s, b_c - a_s}, Cx<T>{w.x, w.y}));
+        if (k2 > 0) buf[(m - k2) * N1 + col] = pack(cmul(Cx<T>{a_c - b_s, b_c + a_s}, Cx<T>{w.x, -w.y}));
+      }
+      et[e] += det[e];
+      et[e] -= et[e] >= m ? m : 0;
+    }
+  }
+}
+
+// Step 5 where mh <= kP: as pfa_dft_out, over the same packed tiles.
+template <typename T, int Q>
+__device__ __forceinline__ void pfa_dft_out_small(const typename Vec2<T>::type* buf,
+                                                  const typename Vec2<T>::type* roots, typename Vec2<T>::type* ar,
+                                                  int m, T inv_N, const ModM& mod) {
+  using M = Tc<T>;
+  using V = typename Vec2<T>::type;
+  constexpr int N1 = 1 << Q, kWarps = PfaPlan<T, Q>::kThreads / 32;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (m << Q) / 2, mh = (m + 1) / 2;
+  const Pack<T> pk(m, mh, N1 % m, roots, mod, g, t);
+  const int lo = (1 << pk.sh) - 1, first = (threadIdx.x >> 5) * pk.span, stride = kWarps * pk.span;
+  // A element e: P from row ak[e], M from row m - ak[e], column j0 + aoff[e].
+  int aoff[M::kA], ak[M::kA];
+#pragma unroll
+  for (int e = 0; e < M::kA; ++e) {
+    const int k = M::a_col(e, t);
+    aoff[e] = (k >> pk.sh) * M::kM + M::a_row(e, g);
+    ak[e] = k & lo;
+  }
+  // C element e: output cj[e] + j0 + coff[e] (cj = nh: dropped).
+  int coff[M::kC], cj[M::kC];
+#pragma unroll
+  for (int e = 0; e < M::kC; ++e) {
+    const int n = M::c_col(e, t);
+    coff[e] = (n >> pk.sh) * M::kM + M::c_row(e, g);
+    cj[e] = (n >> pk.sh) < pk.groups && (n & lo) < mh ? (n & lo) * N1 : nh;
+  }
+#pragma unroll 1
+  for (int j0 = first; j0 < N1; j0 += stride) {
+    typename M::A pr, pi, nmi, mr;
+#pragma unroll
+    for (int e = 0; e < M::kA; ++e) {
+      const int k2 = ak[e], col = sw(j0 + aoff[e]);
+      V p = {T(0), T(0)}, d = {T(0), T(0)};
+      if (k2 < mh) p = buf[k2 * N1 + col];
+      if (k2 > 0 && k2 < mh) d = buf[(m - k2) * N1 + col];
+      M::set(pr, e, p.x);
+      M::set(pi, e, p.y);
+      M::set(nmi, e, -d.y);
+      M::set(mr, e, d.x);
+    }
+    T acc[2][M::kC];
+#pragma unroll
+    for (int e = 0; e < M::kC; ++e) acc[0][e] = acc[1][e] = T(0);
+    M::add(acc[0], pr, pk.bc);
+    M::add(acc[0], nmi, pk.bs);
+    M::add(acc[1], pi, pk.bc);
+    M::add(acc[1], mr, pk.bs);
+#pragma unroll
+    for (int e = 0; e < M::kC; ++e) {
+      const int j = cj[e] + j0 + coff[e];
+      if (j < nh) ar[j] = V{acc[0][e] * inv_N, acc[1][e] * inv_N};
+    }
+  }
+}
 
 // The N1-point FFT (N1 = 2^Q) of every one of the m rows of buf, the
-// block's threads taking kPfaThreads / (N1 / 16) rows a round.
+// block's threads taking PfaPlan::kThreads / (N1 / 16) rows a round.
 template <typename T, int Q, bool kInv>
 __device__ __forceinline__ void row_ffts(typename Vec2<T>::type* buf, const typename Vec2<T>::type* tw, int m,
                                          int n) {
-  constexpr int N1 = 1 << Q, ft = N1 / kPoints, rows = kPfaThreads<T> / ft;
+  constexpr int N1 = 1 << Q, ft = N1 / kPoints, rows = PfaPlan<T, Q>::kThreads / ft;
   constexpr int kPasses = (Q + 3) / 4, kLast = 1 << (Q - 4 * (kPasses - 1));
   const int t = threadIdx.x % ft;
   Cx<T> v[kPoints];
@@ -593,64 +1114,68 @@ __device__ __forceinline__ void row_ffts(typename Vec2<T>::type* buf, const type
   }
 }
 
-template <typename T, int Q, bool kDev>
-__global__ void __launch_bounds__(kPfaThreads<T>, 1)
+// kDev: the buffer in `scratch`, one slice of n complex values a block;
+// kStaged: each frame's input staged in shared memory by a bulk copy.
+template <typename T, int Q, bool kDev, bool kStaged>
+__global__ void __launch_bounds__(PfaPlan<T, Q>::kThreads, 1)
     ct_fused_pfa_kernel(const T* __restrict__ x, const T* __restrict__ tw_raw, T* __restrict__ half,
                         T* __restrict__ ac, T* __restrict__ scratch, int B, int m, int inv_m, int inv_n1) {
   using V = typename Vec2<T>::type;
-  constexpr int N1 = 1 << Q, kThreads = kPfaThreads<T>;
+  constexpr int N1 = 1 << Q, kThreads = PfaPlan<T, Q>::kThreads;
   const int n = m << Q, nh = n / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  V* buf = kDev ? reinterpret_cast<V*>(scratch) + static_cast<long>(blockIdx.x) * n : reinterpret_cast<V*>(smem_raw);
-  V* roots = reinterpret_cast<V*>(smem_raw) + (kDev ? 0 : n);  // w_m^e, e < m
+  V* const smem = reinterpret_cast<V*>(smem_raw);
+  V* buf = kDev ? reinterpret_cast<V*>(scratch) + static_cast<long>(blockIdx.x) * n : smem;
+  V* stage = smem + (kDev ? 0 : n);               // kStaged: the frame's n/2 points
+  V* roots = stage + (kStaged ? nh : 0);          // w_m^e, e < m
+  uint64_t* bar = reinterpret_cast<uint64_t*>(roots + m);
   const V* tw = reinterpret_cast<const V*>(tw_raw);
+  const uint32_t bytes = static_cast<uint32_t>(n * sizeof(T));
+  long frame = blockIdx.x;
   for (int e = threadIdx.x; e < m; e += kThreads) roots[e] = pack(tw_at<T>(tw, 2 * N1 * e, n));
+  if (kStaged && threadIdx.x == 0) {
+    vt::mbar_init(bar, 1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (frame < B) {
+      vt::mbar_expect_tx(bar, bytes);
+      vt::bulk_copy(stage, x + frame * n, bytes, bar);
+    }
+  }
   __syncthreads();
-  const int chunks = (m + kPfaOuts - 1) / kPfaOuts;
-  const int step = N1 % m;  // j2 gains this from row i to i + 1 of a column
+  // k2 = k N1^-1 mod m of the split's first k (this thread's), and its step.
+  const int k2_first = static_cast<int>(threadIdx.x * inv_n1 % m), k2_step = kThreads * inv_n1 % m;
   const T inv_N = T(1) / static_cast<T>(2 * n);
+  const ModM mod(m);
+  const bool small = !PfaPlan<T, Q>::kLarge || (m + 1) / 2 <= Tc<T>::kP;  // steps 1 and 5 in one packed tile
+  uint32_t parity = 0;
 
 #pragma unroll 1
-  for (long frame = blockIdx.x; frame < B; frame += gridDim.x) {
-    // 1. Y[k2][j1] for k2 = k0 .. k0 + kPfaOuts - 1: e = j2 (k0 + c) mod m.
-    const V* z = reinterpret_cast<const V*>(x + frame * n);
-    for (int item = threadIdx.x; item < chunks * N1; item += kThreads) {
-      const int j1 = item & (N1 - 1), k0 = (item >> Q) * kPfaOuts;
-      const int dk = (step * k0) % m;
-      int j2 = j1 % m, e0 = (j2 * k0) % m;
-      Cx<T> acc[kPfaOuts];
-#pragma unroll
-      for (int c = 0; c < kPfaOuts; ++c) acc[c] = {T(0), T(0)};
-#pragma unroll 1
-      for (int j = j1; j < nh; j += N1) {
-        const V a = __ldg(z + j);
-        const Cx<T> zj = {a.x, a.y};
-        int e = e0;
-#pragma unroll
-        for (int c = 0; c < kPfaOuts; ++c) {
-          const V w = roots[e];
-          acc[c] = cadd(acc[c], cmul(zj, Cx<T>{w.x, w.y}));
-          e += j2;
-          e -= e >= m ? m : 0;
-        }
-        j2 += step;
-        j2 -= j2 >= m ? m : 0;
-        e0 += dk;
-        e0 -= e0 >= m ? m : 0;
-      }
-#pragma unroll
-      for (int c = 0; c < kPfaOuts; ++c) {
-        if (k0 + c < m) buf[(k0 + c) * N1 + sw(j1)] = pack(acc[c]);
-      }
+  for (; frame < B; frame += gridDim.x) {
+    // 1. Y[k2][j1], the m-point DFTs over the columns.
+    const V* src = kStaged ? stage : reinterpret_cast<const V*>(x + frame * n);
+    if (kStaged) {
+      vt::mbar_wait(bar, parity);
+      parity ^= 1;
+    }
+    if (small) {
+      pfa_dft_in_small<T, Q, kStaged>(src, buf, roots, m, mod);
+    } else if constexpr (PfaPlan<T, Q>::kLarge) {
+      pfa_dft_in<T, Q, kStaged>(src, buf, roots, m, mod);
     }
     __syncthreads();
+    if (kStaged && threadIdx.x == 0 && frame + gridDim.x < B) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the reads of the stage come first
+      vt::mbar_expect_tx(bar, bytes);
+      vt::bulk_copy(stage, x + (frame + gridDim.x) * n, bytes, bar);
+    }
     // 2. Z[k2][k1]: the rows' N1-point FFTs.
     row_ffts<T, Q, false>(buf, tw, m, n);
 
     // 3. The split of each pair (k, n - k), in place.
     T* hr = half + frame * (nh + 1);
+    int k2 = k2_first;
     for (int k = threadIdx.x; k <= nh; k += kThreads) {
-      const int k1 = (k * inv_m) & (N1 - 1), k2 = (k * inv_n1) % m;
+      const int k1 = (k * inv_m) & (N1 - 1);
       const int ia = k2 * N1 + sw(k1), ib = (k2 == 0 ? 0 : m - k2) * N1 + sw((N1 - k1) & (N1 - 1));
       const V a = buf[ia], bz = buf[ib];
       const V w = __ldg(tw + k);
@@ -662,72 +1187,73 @@ __global__ void __launch_bounds__(kPfaThreads<T>, 1)
       }
       buf[ia] = packed_w<T>(pk, pn, w);                                    // W[k]
       if (k != 0 && 2 * k != n) buf[ib] = packed_w<T>(pn, pk, V{-w.x, w.y});  // W[n-k]
+      k2 += k2_step;
+      k2 -= k2 >= m ? m : 0;
     }
     __syncthreads();
     // 4. V[k2][j1]: the rows' inverse FFTs.
     row_ffts<T, Q, true>(buf, tw, m, n);
 
-    // 5. Outputs j < n/2: sum over k2 of V[k2][j1] w_m^{-j2 k2}, the even
-    // and the odd k2 in two sums (m is odd: the last term is even's).
-    V* ar = reinterpret_cast<V*>(ac + frame * n);
-    for (int j = threadIdx.x; j < nh; j += kThreads) {
-      const int j2 = j % m;
-      const V* col = buf + sw(j & (N1 - 1));
-      Cx<T> y0 = {T(0), T(0)}, y1 = {T(0), T(0)};
-      int e = 0;
-#pragma unroll 1
-      for (int k2 = 0; k2 < m; k2 += 2) {
-        const V a = col[k2 * N1], w = roots[e];
-        y0 = cadd(y0, cmul(Cx<T>{a.x, a.y}, Cx<T>{w.x, -w.y}));
-        e += j2;
-        e -= e >= m ? m : 0;
-        if (k2 + 1 < m) {
-          const V b = col[(k2 + 1) * N1], u = roots[e];
-          y1 = cadd(y1, cmul(Cx<T>{b.x, b.y}, Cx<T>{u.x, -u.y}));
-          e += j2;
-          e -= e >= m ? m : 0;
-        }
-      }
-      const Cx<T> y = cadd(y0, y1);
-      ar[j] = V{y.re * inv_N, y.im * inv_N};
+    // 5. The outputs j < n/2, from the rows folded in pairs.
+    pfa_fold<T, Q>(buf, roots, m, mod);
+    __syncthreads();
+    if (small) {
+      pfa_dft_out_small<T, Q>(buf, roots, reinterpret_cast<V*>(ac + frame * n), m, inv_N, mod);
+    } else if constexpr (PfaPlan<T, Q>::kLarge) {
+      pfa_dft_out<T, Q>(buf, roots, reinterpret_cast<V*>(ac + frame * n), m, inv_N, mod);
     }
     __syncthreads();  // the buffer is the next frame's
   }
 }
 
-// The Good-Thomas kernel at N1 = 2^Q; kDev: the buffer in `scratch`, one
-// slice of n complex values for each of `blocks` blocks.
-template <typename T, int Q, bool kDev>
+// The Good-Thomas kernel at N1 = 2^Q: `blocks` blocks where kDev (one a
+// scratch slice), else as many as the card holds at once, at most B.
+template <typename T, int Q, bool kDev, bool kStaged>
 int launch_pfa(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int m, int blocks,
                cudaStream_t stream) {
   constexpr int N1 = 1 << Q;
   int inv_m = 1, inv_n1 = 1;  // m^-1 mod N1 and N1^-1 mod m
   while ((inv_m * m) % N1 != 1) ++inv_m;
   while ((inv_n1 * N1) % m != 1) ++inv_n1;
-  const auto kernel = ct_fused_pfa_kernel<T, Q, kDev>;
-  const size_t smem = static_cast<size_t>(kDev ? m : N1 * m + m) * sizeof(typename Vec2<T>::type);
+  const int n = N1 * m;
+  const auto kernel = ct_fused_pfa_kernel<T, Q, kDev, kStaged>;
+  const size_t smem =
+      static_cast<size_t>((kDev ? 0 : n) + (kStaged ? n / 2 : 0) + m) * sizeof(typename Vec2<T>::type) +
+      (kStaged ? 8 : 0);
+  cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int grid = kDev && blocks < B ? blocks : B;
-  kernel<<<grid, kPfaThreads<T>, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(tw),
-                                                static_cast<T*>(half), static_cast<T*>(ac), static_cast<T*>(scratch),
-                                                B, m, inv_m, inv_n1);
+  int grid = blocks;
+  if (!kDev) {
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PfaPlan<T, Q>::kThreads, smem)) !=
+            cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    grid = sms * per_sm;
+  }
+  grid = grid < B ? grid : B;
+  kernel<<<grid, PfaPlan<T, Q>::kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(tw),
+                                              static_cast<T*>(half), static_cast<T*>(ac), static_cast<T*>(scratch),
+                                              B, m, inv_m, inv_n1);
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, bool kDev>
+template <typename T, bool kDev, bool kStaged>
 int launch_pfa_q(const void* x, const void* tw, void* half, void* ac, void* scratch, int B, int q, int m,
                  int blocks, cudaStream_t s) {
   switch (q) {
-    case 7: return launch_pfa<T, 7, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
-    case 8: return launch_pfa<T, 8, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
-    case 9: return launch_pfa<T, 9, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
-    case 10: return launch_pfa<T, 10, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
-    case 11: return launch_pfa<T, 11, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
-    default: return launch_pfa<T, 12, kDev>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 7: return launch_pfa<T, 7, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 8: return launch_pfa<T, 8, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 9: return launch_pfa<T, 9, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 10: return launch_pfa<T, 10, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
+    case 11: return launch_pfa<T, 11, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
+    default: return launch_pfa<T, 12, kDev, kStaged>(x, tw, half, ac, scratch, B, m, blocks, s);
   }
 }
 
@@ -806,10 +1332,11 @@ int launch(const void* x, const void* tw, void* half, void* ac, void* scratch, i
     int err = 0;
     if (!pow2) {
       if constexpr (sizeof(T) == 8) {
-        err = dev ? launch_pfa_q<T, true>(x, tw, half, ac, scratch, B, q, m, blocks, s)
-                  : launch_pfa_q<T, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
-      } else {
-        err = launch_pfa_q<T, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
+        if (dev) err = launch_pfa_q<T, true, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
+      }
+      if (!dev) {
+        err = pfa_staged<T>(n, m) ? launch_pfa_q<T, false, true>(x, tw, half, ac, scratch, B, q, m, blocks, s)
+                                  : launch_pfa_q<T, false, false>(x, tw, half, ac, scratch, B, q, m, blocks, s);
       }
     } else {
       switch (q) {

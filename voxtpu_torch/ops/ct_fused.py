@@ -9,10 +9,14 @@ n-point complex transforms. A power-of-two n runs radix-16 passes in
 registers, 16 complex values a thread; a frame longer than one block holds
 (8192 in float32, 4096 in float64) spreads over a thread-block cluster of
 n / that blocks, each one residue class of the spectrum. Any other n,
-N1 x m with N1 a power of two and m odd, runs a prime-factor split: direct
-m-point DFTs and N1-point radix-16 FFTs over a buffer of the whole frame, in
-shared memory, or in float64 above 14,336 points in a scratch buffer in
-device memory (`ct_fused_layout`). `ct_fused_supported` is the shape gate,
+N1 x m with N1 a power of two and m odd, runs a prime-factor split: the
+m-point DFTs as products with the DFT matrix on the tensor cores (float32
+in three TF32 passes, float64 on the FP64 tensor cores) and N1-point
+radix-16 FFTs over a buffer of the whole frame, in shared memory, or in
+float64 above 14,336 points in a scratch buffer in device memory
+(`ct_fused_layout`); persistent blocks walk the frames, the next frame's
+input staged in shared memory by a bulk copy where it fits
+(`ct_fused_pfa_staged`). `ct_fused_supported` is the shape gate,
 voxtpu's: which shapes the kernel takes follows from (n, nfft, dtype)
 alone, never from a failed launch.
 """
@@ -27,8 +31,8 @@ import torch
 from voxtpu_torch.ops import kernels
 from voxtpu_torch.ops.ct_x3 import _MAX_N
 
-__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_cluster", "ct_fused_layout", "ct_fused_smem_bytes",
-           "ct_fused_supported", "ct_fused_power_ac_plain", "ct_fused_power_ac"]
+__all__ = ["SMEM_LIMIT", "MAX_N", "ct_fused_cluster", "ct_fused_layout", "ct_fused_pfa_staged",
+           "ct_fused_smem_bytes", "ct_fused_supported", "ct_fused_power_ac_plain", "ct_fused_power_ac"]
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (227 KB; csrc/ct_fused.cu kSmemLimit)
 # The largest frame the kernel takes, per dtype (csrc/ct_fused.cu's kMaxN):
@@ -42,6 +46,15 @@ MAX_N = {torch.float32: _MAX_N, torch.float64: _MAX_N}
 _BLOCK_N = {torch.float32: 8192, torch.float64: 4096}
 _POINTS = 16  # complex values a thread holds (csrc/ct_fused.cu's kPoints)
 _MIN_BLOCK_THREADS = 128  # frames of fewer than 2048 points share a block up to this (kMinBlockThreads)
+# The prime-factor kernel's threads a block (kPfaThreads; kPfaWideThreads in
+# float32 where N1 >= 2^kPfaWideLog2), and the N tiles of 8 that a warp's
+# accumulators hold in its forward and inverse m-point DFTs (kPfaChunk,
+# kPfaChunk5).
+_PFA_THREADS = 256
+_PFA_WIDE_THREADS = 512
+_PFA_WIDE_LOG2 = 11
+_PFA_CHUNK = 2
+_PFA_CHUNK5 = 4
 
 
 def _pow2(n: int) -> bool:
@@ -72,16 +85,40 @@ def ct_fused_layout(n: int, dtype: torch.dtype) -> str:
     return "shared" if (n + _odd_part(n)) * 2 * itemsize <= SMEM_LIMIT else "device"
 
 
+def ct_fused_pfa_staged(n: int, dtype: torch.dtype) -> bool:
+    """Whether the prime-factor kernel stages each frame's n/2 input points
+    in shared memory (a bulk copy of the next frame while the current one
+    runs; csrc/ct_fused.cu's `pfa_staged`): in the "shared" layout, where
+    the staged block still fits SMEM_LIMIT."""
+    n = int(n)
+    if _pow2(n) or ct_fused_layout(n, dtype) != "shared":
+        return False
+    itemsize = 8 if dtype == torch.float64 else 4
+    return (n + n // 2 + _odd_part(n)) * 2 * itemsize + 8 <= SMEM_LIMIT
+
+
+def _pfa_threads(n: int, dtype: torch.dtype) -> int:
+    """Threads a block of the prime-factor kernel at a frame of n = N1 m
+    (csrc/ct_fused.cu's PfaPlan): 512 in float32 where N1 >= 2048, else 256."""
+    n = int(n)
+    wide = dtype == torch.float32 and (n & -n) >= 1 << _PFA_WIDE_LOG2
+    return _PFA_WIDE_THREADS if wide else _PFA_THREADS
+
+
 def ct_fused_smem_bytes(n: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block: each of its frames' exchange
     buffer of n complex values, or of n / cluster in a cluster's block; for
     a frame that is not a power of two, n = N1 m, the frame and the m roots
-    of unity, or the roots alone in the "device" layout (csrc/ct_fused.cu)."""
+    of unity, or the roots alone in the "device" layout, and where the input
+    is staged (`ct_fused_pfa_staged`) its n/2 points and an 8-byte mbarrier
+    (csrc/ct_fused.cu)."""
     n = int(n)
     itemsize = 8 if dtype == torch.float64 else 4
     layout = ct_fused_layout(n, dtype)
     if layout != "registers":
-        return ((n if layout == "shared" else 0) + _odd_part(n)) * 2 * itemsize
+        staged = ct_fused_pfa_staged(n, dtype)
+        points = (n if layout == "shared" else 0) + (n // 2 if staged else 0) + _odd_part(n)
+        return points * 2 * itemsize + (8 if staged else 0)
     m = n // ct_fused_cluster(n, dtype)
     frames = max(1, _MIN_BLOCK_THREADS // (m // _POINTS))
     return frames * m * 2 * itemsize
